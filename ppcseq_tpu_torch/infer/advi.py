@@ -1,0 +1,193 @@
+"""Meanfield ADVI in torch (ppcseq_tpu/infer/advi.py).
+
+A meanfield Gaussian q(theta) = N(m, diag(s^2)) in unconstrained space,
+fitted by Adam on the reparametrized one-sample ELBO gradient, with the
+reference's convergence rule (relative ELBO change vs tol_rel_obj over a
+rolling window, assessed every `eval_every` steps) and its
+retry-until-success wrapper (`vb_iterative`, R/utilities.R:246-278).
+
+Adam is written out to match `optax.adam(lr / sqrt(1 + step / 100))`:
+b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0, the schedule read at the
+pre-increment step count. Each step takes its noise `eps` as an argument,
+so the same noise can drive both packages.
+
+The log density takes a batch: `log_density(theta[B, D]) -> [B]`. The
+steps run eagerly, one small op at a time (~40 per step plus one
+likelihood launch); JAX ran each 100-step chunk as one compiled scan.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclass
+class AdamState:
+    mu: dict  # first moments, keyed like the parameters
+    nu: dict  # second moments
+    count: int  # steps taken
+
+
+@dataclass
+class ADVIResult:
+    mean: torch.Tensor  # [D] variational mean, on the fit's device
+    log_sd: torch.Tensor  # [D] variational log-stddev
+    elbo: float
+    elbo_trace: np.ndarray
+    converged: bool
+    iterations: int
+
+
+def elbo_estimate(log_density, m, log_s, eps):
+    """Reparametrized ELBO from noise eps[n, D]: E_q[logp] + entropy(q)."""
+    logps = log_density(m + torch.exp(log_s) * eps)
+    entropy = torch.sum(log_s) + 0.5 * m.shape[-1] * (1.0 + math.log(2.0 * math.pi))
+    return torch.mean(logps) + entropy
+
+
+def adam_init(params: dict) -> AdamState:
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    return AdamState(mu=zeros, nu=dict(zeros), count=0)
+
+
+def schedule(learning_rate: float, count: int) -> float:
+    """Inverse-sqrt step-size decay (advi.py:71-73 of the JAX package)."""
+    return learning_rate / math.sqrt(1.0 + count / 100.0)
+
+
+def advi_step(params: dict, state: AdamState, eps, log_density, learning_rate: float):
+    """One Adam step on -ELBO at noise eps[grad_samples, D].
+
+    Returns (params, state, loss); the inputs are not modified.
+    """
+    m = params["m"].detach().requires_grad_(True)
+    log_s = params["log_s"].detach().requires_grad_(True)
+    loss = -elbo_estimate(log_density, m, log_s, eps)
+    grads = dict(zip(("m", "log_s"), torch.autograd.grad(loss, (m, log_s))))
+    count = state.count + 1
+    bc1 = 1.0 - B1**count
+    bc2 = 1.0 - B2**count
+    step = -schedule(learning_rate, state.count)
+    new_params, mu, nu = {}, {}, {}
+    with torch.no_grad():
+        for k, g in grads.items():
+            mu[k] = (1.0 - B1) * g + B1 * state.mu[k]
+            nu[k] = (1.0 - B2) * (g * g) + B2 * state.nu[k]
+            update = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
+            new_params[k] = params[k] + step * update
+    return new_params, AdamState(mu=mu, nu=nu, count=count), loss.detach()
+
+
+def fit_advi(
+    log_density,
+    dim: int,
+    generator: torch.Generator,
+    *,
+    max_iter: int = 50000,
+    tol_rel_obj: float = 0.005,
+    eval_every: int = 100,
+    elbo_samples: int = 100,
+    grad_samples: int = 1,
+    learning_rate: float = 0.1,
+    window: int = 8,
+    init_mean=None,
+    init_log_sd: float | None = None,
+    device="cpu",
+    dtype=torch.float32,
+) -> ADVIResult:
+    """Fit meanfield ADVI over a [dim] vector state.
+
+    Noise comes from `generator` (which must live on `device`). ELBO is
+    estimated with `elbo_samples` draws every `eval_every` steps; stop when
+    the mean or the median of the last `window` relative changes drops
+    below tol_rel_obj (Stan ADVI's rule).
+    """
+    if init_log_sd is None:
+        init_log_sd = -1.0 if init_mean is not None else 0.0
+    m0 = (
+        torch.as_tensor(init_mean, dtype=dtype, device=device).clone()
+        if init_mean is not None
+        else torch.zeros(dim, dtype=dtype, device=device)
+    )
+    params = {"m": m0, "log_s": torch.full((dim,), float(init_log_sd), dtype=dtype, device=device)}
+    state = adam_init(params)
+
+    elbos: list[float] = []
+    deltas: list[float] = []
+    converged = False
+    it = 0
+    while it < max_iter:
+        noise = torch.randn(
+            (eval_every, grad_samples, dim), generator=generator, device=device, dtype=dtype
+        )
+        for k in range(eval_every):
+            params, state, _ = advi_step(params, state, noise[k], log_density, learning_rate)
+        it += eval_every
+        eps = torch.randn((elbo_samples, dim), generator=generator, device=device, dtype=dtype)
+        with torch.no_grad():
+            elbo = float(elbo_estimate(log_density, params["m"], params["log_s"], eps))
+        if not np.isfinite(elbo):
+            break
+        if elbos:
+            prev = elbos[-1]
+            deltas.append(abs((elbo - prev) / prev) if prev != 0 else np.inf)
+            recent = deltas[-window:]
+            if len(recent) >= 2 and (
+                np.mean(recent) < tol_rel_obj or np.median(recent) < tol_rel_obj
+            ):
+                elbos.append(elbo)
+                converged = True
+                break
+        elbos.append(elbo)
+
+    return ADVIResult(
+        mean=params["m"],
+        log_sd=params["log_s"],
+        elbo=elbos[-1] if elbos else float("nan"),
+        elbo_trace=np.asarray(elbos),
+        converged=converged,
+        iterations=it,
+    )
+
+
+def advi_sample(result: ADVIResult, generator: torch.Generator, n_draws: int) -> torch.Tensor:
+    """n_draws samples [n, D] from the fitted meanfield posterior."""
+    m, log_s = result.mean, result.log_sd
+    eps = torch.randn((n_draws, m.shape[0]), generator=generator, device=m.device, dtype=m.dtype)
+    return m + torch.exp(log_s) * eps
+
+
+def vb_iterative(
+    log_density,
+    dim: int,
+    generator: torch.Generator,
+    *,
+    max_attempts: int = 5,
+    min_elbo: float = -1e15,
+    init_mean=None,
+    **advi_kwargs,
+) -> ADVIResult:
+    """Retry ADVI until it succeeds (reference `vb_iterative`,
+    R/utilities.R:246-278). After the first failure the data-driven init
+    is dropped in favour of the zero init."""
+    last = None
+    for attempt in range(max_attempts):
+        res = fit_advi(
+            log_density, dim, generator,
+            init_mean=init_mean if attempt == 0 else None,
+            **advi_kwargs,
+        )
+        finite_mean = bool(torch.isfinite(res.mean).all())
+        if np.isfinite(res.elbo) and res.elbo > min_elbo and finite_mean:
+            return res
+        last = res
+        print(f"Further attempt with Variational Bayes: attempt {attempt + 1} failed")
+    if last is None:
+        raise RuntimeError("ADVI failed to produce any result")
+    raise RuntimeError(f"ADVI failed after {max_attempts} attempts (elbo={last.elbo})")
