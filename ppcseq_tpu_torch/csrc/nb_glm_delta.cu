@@ -1,15 +1,21 @@
-// Delta-form masked NB2-log GLM log-likelihood with analytic gradients,
-// batched over B parameter vectors, for NVIDIA Hopper (sm_90a).
+// NB2-log GLM log-likelihood on the hoisted math, with analytic gradients,
+// batched over B parameter vectors, for NVIDIA Hopper (sm_90a). One source,
+// two kernels, chosen by the compile-time switch DELTA:
 //
-// Replaces the Pallas TPU kernel ppcseq_tpu/ops/nb_kernel.py:_fastk_delta
-// (+ _fast_common); the plain torch version of the same function is
-// ppcseq_tpu_torch/ops/nb_fast.py:glm_delta, whose branch structure,
-// thresholds and polynomials this file follows line for line.
+//   DELTA = true  (K1) replaces the Pallas TPU kernel
+//                 ppcseq_tpu/ops/nb_kernel.py:_fastk_delta (+ _fast_common);
+//                 plain version ppcseq_tpu_torch/ops/nb_fast.py:glm_delta.
+//   DELTA = false (K2) replaces ppcseq_tpu/ops/nb_kernel.py:_fastk_plain;
+//                 plain version ppcseq_tpu_torch/ops/nb_fast.py:glm_plain.
+//
+// The branch structure, thresholds and polynomials follow the plain
+// versions line for line.
 //
 //   value[b]          = sum_{s,g} mask[s,g] * lpmf(y[s,g] | d[b,s,g], phi[b,g])
 //   dalpha[b,c,g]     = sum_s X[s,c] * mask[s,g] * deta[b,s,g]
 //   dlog_phi[b,g]     = sum_s mask[s,g] * dlogphi[b,s,g]
-//   d = d0 + X (alpha[b] - alpha0) - (min(log_phi[b], 80) + sigma_raw0)
+//   K1: d = d0 + X (alpha[b] - alpha0) - (min(log_phi[b], 80) + sigma_raw0)
+//   K2: d = exposure + X alpha[b] - min(log_phi[b], 80)   (C multiply-adds)
 //
 // Layout. One thread owns one (b, g) and loops over the S samples, so
 // neighbouring threads read neighbouring genes of each [S, G] row
@@ -20,75 +26,30 @@
 // so the value is bitwise reproducible from run to run.
 //
 // Bound. Per point ~3 exp + 1 log (more on the rarer far/fallback
-// branches) and 12 bytes of [S, G] input (counts, mask, d0), re-read for
-// each b from L2. At large S*G*B the special-function units bound it; at
-// the pipeline's shapes (S=21, G~500, B=1 or 100) launch latency does. The
-// value-only instantiation (GRADS=false) skips the digamma terms and the
-// gradient math for the ELBO evaluations.
+// branches) and 8-12 bytes of [S, G] input (counts, mask, and d0 for K1),
+// re-read for each b from L2. At large S*G*B the special-function units
+// bound it; at the pipeline's shapes (S=21, G~500, B=1..128) launch latency
+// does. The value-only instantiation (GRADS=false) skips the digamma terms
+// and the gradient math.
 //
 // Build without --use_fast_math: the float32 smoothness of the delta form
 // rests on accurate expf/logf and on the branch thresholds.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nb_common.cuh"
 
 namespace {
 
-constexpr float LOG_PHI_CAP = 80.0f;
-constexpr float HALF_LOG_2PI = 0.9189385332046727f;
-constexpr float LOG8 = 2.0794415416798357f;
-constexpr int MAX_C = 8;
-constexpr int THREADS = 128;
-constexpr int REDUCE_THREADS = 256;
+using namespace nbk;
 
-// lgamma(y+1) for y = 0..7
-__device__ __forceinline__ float lgamma_1p_small(float yf) {
-  float v = 0.0f;
-  v = yf >= 2.0f ? 0.6931471805599453f : v;
-  v = yf >= 3.0f ? 1.791759469228055f : v;
-  v = yf >= 4.0f ? 3.1780538303479458f : v;
-  v = yf >= 5.0f ? 4.787491742782046f : v;
-  v = yf >= 6.0f ? 6.579251212010101f : v;
-  v = yf >= 7.0f ? 8.525161361065415f : v;
-  return v;
-}
-
-// log(1+u), u in [0, 1]: odd atanh series through z^13
-__device__ __forceinline__ float log1p01(float u) {
-  const float z = u / (2.0f + u);
-  const float z2 = z * z;
-  return 2.0f * z *
-         (1.0f + z2 * (1.0f / 3.0f + z2 * (1.0f / 5.0f + z2 * (1.0f / 7.0f +
-          z2 * (1.0f / 9.0f + z2 * (1.0f / 11.0f + z2 / 13.0f))))));
-}
-
-// log(1+u), u > -1: atanh series through z^9 on -1/3 < u < 1/2, else logf
-__device__ __forceinline__ float log1p_wide(float u) {
-  if (u > -1.0f / 3.0f && u < 0.5f) {
-    const float z = u / (2.0f + u);
-    const float z2 = z * z;
-    return 2.0f * z *
-           (1.0f + z2 * (1.0f / 3.0f + z2 * (1.0f / 5.0f + z2 * (1.0f / 7.0f + z2 / 9.0f))));
-  }
-  return logf(1.0f + u);
-}
-
-// sum_{k < y} table[k] for y in 0..7 (the largest applicable k wins)
-__device__ __forceinline__ float select_by_y(float yf, const float (&t)[7]) {
-  float out = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) out = yf > (float)k ? t[k] : out;
-  return out;
-}
-
-template <int C, bool GRADS>
+template <int C, bool GRADS, bool DELTA>
 __global__ void __launch_bounds__(THREADS)
-nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ counts,
-                    const float* __restrict__ mask, const float* __restrict__ d0,
-                    const float* __restrict__ alpha, const float* __restrict__ alpha0,
-                    const float* __restrict__ log_phi, const float* __restrict__ sigma_raw0,
-                    int S, int G, float* __restrict__ partial,
-                    float* __restrict__ dalpha, float* __restrict__ dlog_phi) {
+nb_glm_fast_kernel(const float* __restrict__ X, const float* __restrict__ exposure,
+                   const int32_t* __restrict__ counts, const float* __restrict__ mask,
+                   const float* __restrict__ d0, const float* __restrict__ alpha,
+                   const float* __restrict__ alpha0, const float* __restrict__ log_phi,
+                   const float* __restrict__ sigma_raw0, int S, int G,
+                   float* __restrict__ partial, float* __restrict__ dalpha,
+                   float* __restrict__ dlog_phi) {
   const int g = blockIdx.x * THREADS + threadIdx.x;
   const int b = blockIdx.y;
   if (g >= G) return;
@@ -127,13 +88,14 @@ nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ cou
   const float b_const = -0.5f * log_phi_b + 1.0f - HALF_LOG_2PI - (1.0f / 12.0f) * inv_phi_b +
                         (1.0f / 360.0f) * inv_phi_b3;
   const float d_b = phi - 1.0f;
-  const float delta_log_phi = lpc + sigma_raw0[g];  // log_phi - log_phi0
+  const float delta_log_phi = DELTA ? lpc + sigma_raw0[g] : 0.0f;  // log_phi - log_phi0
   const bool below_cap = lp_raw < LOG_PHI_CAP;
 
   float da[C];
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    da[c] = alpha[((size_t)b * C + c) * G + g] - alpha0[(size_t)c * G + g];
+    da[c] = DELTA ? alpha[((size_t)b * C + c) * G + g] - alpha0[(size_t)c * G + g]
+                  : alpha[((size_t)b * C + c) * G + g];
 
   float acc_val = 0.0f, acc_dlp = 0.0f;
   float acc_da[C];
@@ -144,13 +106,14 @@ nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ cou
     const size_t i = (size_t)s * G + g;
     const float m = mask[i];
     const float yf = (float)counts[i];
-    const float d0v = d0[i];
 
-    float delta_eta = 0.0f;
+    // K1: delta_eta = X (alpha - alpha0); K2: eta = exposure + X alpha
+    float eta = DELTA ? 0.0f : exposure[s];
 #pragma unroll
-    for (int c = 0; c < C; ++c) delta_eta += __ldg(&X[s * C + c]) * da[c];
-    const float dlo = delta_eta - delta_log_phi;
-    const float d = d0v + dlo;
+    for (int c = 0; c < C; ++c) eta += __ldg(&X[s * C + c]) * da[c];
+    const float d0v = DELTA ? d0[i] : 0.0f;
+    const float dlo = eta - delta_log_phi;  // K1 only
+    const float d = DELTA ? d0v + dlo : eta - lpc;
 
     // softplus pair sharing one exp (nb_fast._softplus_pair)
     const float em = expf(-fabsf(d));
@@ -158,26 +121,34 @@ nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ cou
     const float sp_d = fmaxf(d, 0.0f) + l1pem;
     const float sp_nd = fmaxf(-d, 0.0f) + l1pem;
 
-    // baseline constants rebuilt from d0
-    const float em0 = expf(-fabsf(d0v));
-    const float sp_d0 = fmaxf(d0v, 0.0f) + log1p01(em0);
-    const float sig_neg_d0 = d0v > 0.0f ? em0 / (1.0f + em0) : 1.0f / (1.0f + em0);
-    const float spn0 = sp_d0 - d0v;  // softplus(-d0)
+    // part23 = -(phi_sp + y * y_sp), y_sp = softplus(-d)
+    float phi_sp, y_sp;
+    if (DELTA) {
+      // baseline constants rebuilt from d0
+      const float em0 = expf(-fabsf(d0v));
+      const float sp_d0 = fmaxf(d0v, 0.0f) + log1p01(em0);
+      const float sig_neg_d0 = d0v > 0.0f ? em0 / (1.0f + em0) : 1.0f / (1.0f + em0);
+      const float spn0 = sp_d0 - d0v;  // softplus(-d0)
 
-    // hybrid increments (nb_fast.delta_increment_terms)
-    float phi_sp, inc_neg;
-    if (dlo > -2.0f && dlo < 8.0f) {
-      const float e1 =
-          fabsf(dlo) < 0.35f
-              ? dlo * (1.0f + dlo * (0.5f + dlo * (1.0f / 6.0f + dlo * (1.0f / 24.0f +
-                dlo * (1.0f / 120.0f + dlo * (1.0f / 720.0f + dlo / 5040.0f))))))
-              : expf(dlo) - 1.0f;
-      const float e1_neg = -e1 / (1.0f + e1);
-      phi_sp = phi * (sp_d0 + log1p_wide((1.0f - sig_neg_d0) * e1));
-      inc_neg = log1p_wide(sig_neg_d0 * e1_neg);
+      // hybrid increments (nb_fast.delta_increment_terms)
+      float inc_neg;
+      if (dlo > -2.0f && dlo < 8.0f) {
+        const float e1 =
+            fabsf(dlo) < 0.35f
+                ? dlo * (1.0f + dlo * (0.5f + dlo * (1.0f / 6.0f + dlo * (1.0f / 24.0f +
+                  dlo * (1.0f / 120.0f + dlo * (1.0f / 720.0f + dlo / 5040.0f))))))
+                : expf(dlo) - 1.0f;
+        const float e1_neg = -e1 / (1.0f + e1);
+        phi_sp = phi * (sp_d0 + log1p_wide((1.0f - sig_neg_d0) * e1));
+        inc_neg = log1p_wide(sig_neg_d0 * e1_neg);
+      } else {
+        phi_sp = d < -25.0f ? expf(fminf(fmaxf(lpc + d, -60.0f), 60.0f)) : phi * sp_d;
+        inc_neg = sp_nd - spn0;
+      }
+      y_sp = inc_neg + spn0;
     } else {
-      phi_sp = d < -25.0f ? expf(fminf(fmaxf(lpc + d, -60.0f), 60.0f)) : phi * sp_d;
-      inc_neg = sp_nd - spn0;
+      phi_sp = phi * sp_d;
+      y_sp = sp_nd;
     }
 
     // part1 and phi*(digamma(y+phi) - digamma(phi)) (nb_fast._part1_and_digamma)
@@ -213,7 +184,7 @@ nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ cou
       }
     }
 
-    const float pts = part1 - phi_sp - yf * (inc_neg + spn0);
+    const float pts = part1 - phi_sp - yf * y_sp;
     acc_val += m * pts;
 
     if (GRADS) {
@@ -246,54 +217,44 @@ nb_glm_delta_kernel(const float* __restrict__ X, const int32_t* __restrict__ cou
   }
 }
 
-// value[b] = sum_g partial[b, g]: one block per b, a fixed strided order and
-// a fixed shared-memory tree, accumulated in double.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-sum_over_genes_kernel(const float* __restrict__ partial, int G, float* __restrict__ value) {
-  __shared__ double buf[REDUCE_THREADS];
-  const int b = blockIdx.x;
-  double acc = 0.0;
-  for (int g = threadIdx.x; g < G; g += REDUCE_THREADS) acc += (double)partial[(size_t)b * G + g];
-  buf[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = REDUCE_THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) value[b] = (float)buf[0];
-}
 
-template <int C>
-void launch_c(dim3 grid, cudaStream_t st, bool grads, const float* X, const int32_t* counts,
-              const float* mask, const float* d0, const float* alpha, const float* alpha0,
-              const float* log_phi, const float* sigma_raw0, int S, int G, float* partial,
-              float* dalpha, float* dlog_phi) {
+template <int C, bool DELTA>
+void launch_c(dim3 grid, cudaStream_t st, bool grads, const float* X, const float* exposure,
+              const int32_t* counts, const float* mask, const float* d0, const float* alpha,
+              const float* alpha0, const float* log_phi, const float* sigma_raw0, int S, int G,
+              float* partial, float* dalpha, float* dlog_phi) {
   if (grads)
-    nb_glm_delta_kernel<C, true><<<grid, THREADS, 0, st>>>(
-        X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, S, G, partial, dalpha, dlog_phi);
+    nb_glm_fast_kernel<C, true, DELTA><<<grid, THREADS, 0, st>>>(
+        X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, S, G, partial, dalpha,
+        dlog_phi);
   else
-    nb_glm_delta_kernel<C, false><<<grid, THREADS, 0, st>>>(
-        X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, S, G, partial, dalpha, dlog_phi);
+    nb_glm_fast_kernel<C, false, DELTA><<<grid, THREADS, 0, st>>>(
+        X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, S, G, partial, dalpha,
+        dlog_phi);
 }
 
 }  // namespace
 
-extern "C" int nb_glm_delta_max_c() { return MAX_C; }
+extern "C" int nb_glm_fast_max_c() { return MAX_C; }
 
-// Launches the likelihood kernel and the gene reduction on `stream`.
-// `partial` is [B, G] scratch; `dalpha`/`dlog_phi` are ignored unless
-// want_grads. Returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a C outside 1..MAX_C.
-extern "C" int nb_glm_delta_launch(const void* X, const void* counts, const void* mask,
-                                   const void* d0, const void* alpha, const void* alpha0,
-                                   const void* log_phi, const void* sigma_raw0, void* partial,
-                                   void* value, void* dalpha, void* dlog_phi, int B, int S,
-                                   int C, int G, int want_grads, void* stream) {
+// Launches K1 (delta != 0: reads d0, alpha0, sigma_raw0; exposure ignored)
+// or K2 (delta == 0: reads exposure; d0, alpha0, sigma_raw0 ignored), then
+// the gene reduction, on `stream`. `partial` is [B, G] scratch;
+// `dalpha`/`dlog_phi` are ignored unless want_grads. Returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a C
+// outside 1..MAX_C.
+extern "C" int nb_glm_fast_launch(const void* X, const void* exposure, const void* counts,
+                                  const void* mask, const void* d0, const void* alpha,
+                                  const void* alpha0, const void* log_phi,
+                                  const void* sigma_raw0, void* partial, void* value,
+                                  void* dalpha, void* dlog_phi, int B, int S, int C, int G,
+                                  int want_grads, int delta, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B <= 0 || G <= 0) return (int)cudaGetLastError();
   dim3 grid((G + THREADS - 1) / THREADS, B);
   const bool grads = want_grads != 0;
   auto Xf = static_cast<const float*>(X);
+  auto ex = static_cast<const float*>(exposure);
   auto cnt = static_cast<const int32_t*>(counts);
   auto mk = static_cast<const float*>(mask);
   auto d0f = static_cast<const float*>(d0);
@@ -304,16 +265,15 @@ extern "C" int nb_glm_delta_launch(const void* X, const void* counts, const void
   auto part = static_cast<float*>(partial);
   auto dal = static_cast<float*>(dalpha);
   auto dlp = static_cast<float*>(dlog_phi);
-  switch (C) {
-#define NB_CASE(n)                                                                          \
-  case n:                                                                                   \
-    launch_c<n>(grid, st, grads, Xf, cnt, mk, d0f, al, al0, lp, sr0, S, G, part, dal, dlp); \
-    break;
-    NB_CASE(1) NB_CASE(2) NB_CASE(3) NB_CASE(4) NB_CASE(5) NB_CASE(6) NB_CASE(7) NB_CASE(8)
+#define NB_CASE(n)                                                                           \
+  if (delta)                                                                                 \
+    launch_c<n, true>(grid, st, grads, Xf, ex, cnt, mk, d0f, al, al0, lp, sr0, S, G, part,   \
+                      dal, dlp);                                                             \
+  else                                                                                       \
+    launch_c<n, false>(grid, st, grads, Xf, ex, cnt, mk, d0f, al, al0, lp, sr0, S, G, part,  \
+                       dal, dlp);
+  NBK_DISPATCH_C(C, NB_CASE)
 #undef NB_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_over_genes_kernel<<<B, REDUCE_THREADS, 0, st>>>(part, G, static_cast<float*>(value));

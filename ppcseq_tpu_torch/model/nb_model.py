@@ -12,19 +12,33 @@ Differences in form, not in math:
 - Host arrays stay on the host: `prepare_data` keeps NumPy copies of the
   uploaded arrays (`ModelData.host`), and `smart_init`/`with_baseline`
   compute from them in float64 without reading the device back.
-- The likelihood is always the delta form through ops/nb_kernel (the CUDA
-  kernel on the card, its plain version on the CPU).
+- The likelihood is chosen by `flat_logp(dims, likelihood)`: the default
+  ("auto" = "fast") is the hoisted kernel pair K1/K2 through ops/nb_kernel
+  (the CUDA kernels on the card, their plain versions on the CPU);
+  "plain" is torch autograd through `masked_likelihood`; "pallas" and
+  "pallas_fused" are the stable-form K4/K5 pair and the one-pass K3.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ppcseq_tpu_torch.ops import nb_kernel
-from ppcseq_tpu_torch.ops.nb import double_exponential_lpdf, normal_lpdf, skew_normal_lpdf
+from ppcseq_tpu_torch.ops.nb import (
+    _softplus,
+    double_exponential_lpdf,
+    expm1_precise,
+    log1p_precise,
+    nb2_log_lpmf,
+    nb2_log_lpmf_stable,
+    nb2_part1,
+    normal_lpdf,
+    skew_normal_lpdf,
+)
 from ppcseq_tpu_torch.utils.constants import LAMBDA_MU_MU
 
 _SCALARS = ("lambda_mu", "lambda_sigma", "lambda_skew", "sigma_slope",
@@ -225,8 +239,77 @@ def with_baseline(data: ModelData, dims: ModelDims) -> ModelData:
     )
 
 
-def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims) -> torch.Tensor:
-    """Unnormalized log posterior in unconstrained space: theta[B, D] -> [B]."""
+def stable_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """Masked likelihood in the float32-stable form, ignoring any baseline:
+    alpha[B, C, G], log_phi[B, G] -> [B]. The plain version of K4."""
+    eta = data.exposure_rate[:, None] + torch.matmul(data.X, alpha)  # [B, S, G]
+    pts = nb2_log_lpmf_stable(data.counts, eta, log_phi.unsqueeze(1))
+    return torch.sum(data.like_mask * pts, dim=(1, 2))
+
+
+def masked_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """Masked NB2-log likelihood [B]: the delta form when baseline constants
+    are attached (with_baseline), the stable form otherwise (nb_model.py:
+    348-365 of the JAX package)."""
+    if data.d0 is not None:
+        return delta_likelihood(data, alpha, log_phi)
+    return stable_likelihood(data, alpha, log_phi)
+
+
+def delta_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """Delta-form masked likelihood on the unhoisted math, batched: the
+    value half of K3's plain version (nb_model.py:401-475 of the JAX
+    package, which derives each branch).
+
+    softplus(d0 + dlo) = softplus(d0) + log1p(sigmoid(d0) * expm1(dlo)) near
+    the baseline (-2 < dlo < 8), the direct stable forms outside, and the
+    Poisson limit exp(log_phi + d) below d = -25; phi is capped at e^80.
+    """
+    delta_eta = torch.matmul(data.X, alpha - data.alpha0)  # [B, S, G]
+    log_phi_c = torch.clamp(log_phi, max=80.0).unsqueeze(1)  # [B, 1, G]
+    dlo = delta_eta - (log_phi_c + data.sigma_raw0)
+    d_full = data.d0 + dlo
+
+    y = data.counts.to(dlo.dtype)
+    phi = torch.exp(log_phi_c)
+    sig_d0 = 1.0 - data.sig_neg_d0
+
+    dlo_m = torch.clamp(dlo, -2.0, 8.0)
+    sp_d_mid = data.sp_d0 + log1p_precise(sig_d0 * expm1_precise(dlo_m))
+    inc_neg_mid = log1p_precise(data.sig_neg_d0 * expm1_precise(-dlo_m))
+
+    spn0 = data.sp_d0 - data.d0  # softplus(-d0)
+    phi_sp_far = torch.where(
+        d_full < -25.0,
+        torch.exp(torch.clamp(log_phi_c + d_full, -60.0, 60.0)),
+        phi * _softplus(d_full),
+    )
+    inc_neg_far = _softplus(-d_full) - spn0
+
+    mid = (dlo > -2.0) & (dlo < 8.0)
+    phi_sp = torch.where(mid, phi * sp_d_mid, phi_sp_far)
+    inc_neg = torch.where(mid, inc_neg_mid, inc_neg_far)
+
+    part1 = nb2_part1(y, phi.expand_as(dlo), log_phi_c.expand_as(dlo))
+    pts = part1 - phi_sp - y * inc_neg - data.y_sp0
+    return torch.sum(data.like_mask * pts, dim=(1, 2))
+
+
+def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
+    """Unfolded lgamma form of the masked likelihood, batched: alpha[B, C, G],
+    log_phi[B, G] -> [B] (ground truth of the kernel tests; nb_kernel.py:
+    217-220 of the JAX package)."""
+    eta = exposure[:, None] + torch.matmul(X, alpha)
+    return torch.sum(mask * nb2_log_lpmf(counts, eta, log_phi.unsqueeze(1)), dim=(1, 2))
+
+
+def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims, *,
+              likelihood_fn=None) -> torch.Tensor:
+    """Unnormalized log posterior in unconstrained space: theta[B, D] -> [B].
+
+    `likelihood_fn(data, alpha[B, C, G], log_phi[B, G]) -> [B]` picks the
+    likelihood; None takes the default route, nb_kernel.nb_glm_likelihood_fast.
+    """
     params, log_jac = unpack(theta, dims)
     gm = data.gene_mask
     col = lambda v: v.unsqueeze(-1)  # noqa: E731  [B] -> [B, 1] against [B, G]
@@ -271,7 +354,50 @@ def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims) -> torch.Te
 
     # Likelihood (stan:97-115): log phi = -sigma_raw (stan:203)
     alpha = make_alpha(params, dims)
-    return lp + nb_kernel.nb_glm_likelihood(data, alpha, -params["sigma_raw"])
+    if likelihood_fn is None:
+        likelihood_fn = nb_kernel.nb_glm_likelihood_fast
+    return lp + likelihood_fn(data, alpha, -params["sigma_raw"])
+
+
+def make_log_density(data: ModelData, dims: ModelDims, likelihood_fn=None):
+    """Bind data: theta[B, D] -> [B]."""
+    return functools.partial(log_joint, data=data, dims=dims, likelihood_fn=likelihood_fn)
+
+
+_NOT_TO_PORT = ("the XLA-only likelihood variants 'analytic' and 'fused' are not ported "
+                "(ROADMAP.md, queue 1: not to port)")
+
+
+def _resolve_likelihood_fn(likelihood: str):
+    fns = {
+        "plain": masked_likelihood,
+        "fast": nb_kernel.nb_glm_likelihood_fast,
+        "pallas": nb_kernel.nb_glm_likelihood,
+        "pallas_fused": nb_kernel.nb_glm_likelihood_fused,
+    }
+    if likelihood in ("analytic", "fused"):
+        raise NotImplementedError(_NOT_TO_PORT)
+    if likelihood not in fns:
+        raise ValueError(f"unknown likelihood {likelihood!r} (use one of {sorted(fns)} or 'auto')")
+    return fns[likelihood]
+
+
+def flat_logp(dims: ModelDims, likelihood: str = "auto"):
+    """Data-parametrized flat log density `f(theta[B, D], data) -> [B]`.
+
+    likelihood: "plain" (torch autograd through `masked_likelihood`, delta
+    form when a baseline is attached), "fast" (nb_kernel.nb_glm_likelihood_fast:
+    K1 with a baseline, K2 without), "pallas" (nb_kernel.nb_glm_likelihood:
+    the stable-form K4 forward and K5 backward, baseline ignored),
+    "pallas_fused" (nb_kernel.nb_glm_likelihood_fused: K3, needs a
+    baseline), or "auto" (= "fast" on every device).
+    """
+    lfn = _resolve_likelihood_fn("fast" if likelihood == "auto" else likelihood)
+
+    def f(theta, data):
+        return log_joint(theta, data, dims, likelihood_fn=lfn)
+
+    return f
 
 
 def extract_lambda_sigma_draws(thetas: torch.Tensor, data: ModelData, dims: ModelDims):

@@ -3,9 +3,10 @@
 Each kernel source under csrc/ is compiled with nvcc into a shared library
 with a plain C interface and loaded with ctypes. Libraries go to
 `build/kernels/<source stem>-<hash>/` at the repository root (override with
-PPCSEQ_TORCH_BUILD_DIR), keyed by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as built. Nothing
-here runs at import time.
+PPCSEQ_TORCH_BUILD_DIR), keyed by a hash of the source, the shared
+csrc/*.cuh headers and the flags, so a changed source is rebuilt and an
+unchanged one is loaded as built. `load_all` starts one nvcc per source,
+all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ NVCC_FLAGS = [
 ]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, dict] = {}  # source name -> {"seconds", "cached", "log"}
+# source name -> {"seconds" (wall of its load_all call), "cached", "log"}
+BUILD_LOG: dict[str, dict] = {}
 
 
 def build_dir() -> Path:
@@ -42,33 +44,49 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Compile csrc/<source> if needed and return the loaded library."""
-    if source in _LOADED:
-        return _LOADED[source]
+def _lib_path(source: str) -> Path:
+    """Where csrc/<source> builds to, keyed by the source, the shared
+    headers and the flags."""
     src = CSRC / source
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir() / f"{src.stem}-{key}"
-    lib_path = out_dir / f"lib{src.stem}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
+
+
+def load_all(sources) -> list[ctypes.CDLL]:
+    """Compile the sources that are not built yet, one nvcc each, all
+    started together; return the loaded libraries in order."""
     t0 = time.perf_counter()
-    log = ""
-    cached = lib_path.exists()
-    if not cached:
+    todo = [s for s in dict.fromkeys(sources) if s not in _LOADED]
+    procs = {}
+    for source in todo:
+        lib_path = _lib_path(source)
+        if lib_path.exists():
+            continue
         nvcc = nvcc_path()
         if nvcc is None:
             raise RuntimeError(f"nvcc not found: cannot build {source}")
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.parent / f".{lib_path.name}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        log = proc.stdout + proc.stderr
+        procs[source] = (proc, tmp, lib_path)
+    failed = []
+    for source, (proc, tmp, lib_path) in procs.items():
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+            failed.append(f"nvcc failed for {source}:\n{log}")
+            continue
         os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
-    lib = ctypes.CDLL(str(lib_path))
-    BUILD_LOG[source] = {"seconds": time.perf_counter() - t0, "cached": cached, "log": log}
-    _LOADED[source] = lib
-    return lib
+        BUILD_LOG[source] = {"log": log, "cached": False}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for source in todo:
+        _LOADED[source] = ctypes.CDLL(str(_lib_path(source)))
+        entry = BUILD_LOG.setdefault(source, {"log": "", "cached": True})
+        entry["seconds"] = time.perf_counter() - t0
+    return [_LOADED[s] for s in sources]

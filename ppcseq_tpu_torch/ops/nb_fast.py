@@ -1,7 +1,8 @@
-"""Delta-form NB2-log GLM likelihood, value + analytic gradients, in plain
-torch: the plain version of the CUDA kernel in ops/nb_kernel.py.
+"""NB2-log GLM likelihood on the hoisted math, value + analytic gradients,
+in plain torch: `glm_delta` is the plain version of K1 and `glm_plain` of
+K2 (csrc/nb_glm_delta.cu, wrapped in ops/nb_kernel.py).
 
-A port of ppcseq_tpu/ops/nb_fast.py (`glm_delta` and its helpers) with the
+A port of ppcseq_tpu/ops/nb_fast.py (`glm_delta`, `glm_plain` and their helpers) with the
 same branch structure, thresholds and polynomials, plus a leading batch
 axis B over parameter vectors (the ADVI samples):
 
@@ -226,6 +227,52 @@ def _grads_from_d(gt, dt, d, sp_d, sp_nd, em, phi_d, log_phi_raw):
     return deta, dlogphi
 
 
+def _eta_small(X, exposure, alpha):
+    """eta[B, S, G] = exposure[:, None] + X @ alpha[b], as C multiply-adds
+    in the kernel's order (exposure first, then column by column)."""
+    B, _, G = alpha.shape
+    eta = exposure[None, :, None].expand(B, X.shape[0], G)
+    for c in range(X.shape[1]):
+        eta = eta + X[None, :, c, None] * alpha[:, None, c, :]
+    return eta
+
+
+def _dalpha_small(X, deta):
+    """dalpha[B, C, G] = X^T deta[b] as C reductions over S."""
+    return torch.stack(
+        [torch.sum(X[None, :, c, None] * deta, dim=1) for c in range(X.shape[1])], dim=1
+    )
+
+
+def glm_plain(X, exposure, counts, mask, alpha, log_phi, want_grads):
+    """Masked likelihood without a baseline (the stable plain form) with the
+    hoisted math, batched over B: the plain version of K2.
+
+    X[S, C], exposure[S], counts/mask [S, G]; alpha[B, C, G], log_phi[B, G].
+    Returns value[B], or (value[B], dalpha[B, C, G], dlog_phi[B, G]) with
+    `want_grads`.
+    """
+    dtype = X.dtype
+    gt = _gene_tables(log_phi.to(dtype))
+    dt = _data_tables(counts, dtype)
+    gt_b = {k: ([t.unsqueeze(1) for t in v] if isinstance(v, list) else v.unsqueeze(1))
+            for k, v in gt.items()}
+
+    eta = _eta_small(X, exposure, alpha)
+    d = eta - gt_b["log_phi_c"]
+    sp_d, sp_nd, em = _softplus_pair(d)
+    part1, phi_d = _part1_and_digamma(gt_b, dt, want_grads)
+    pts = part1 - gt_b["phi"] * sp_d - dt["yf"] * sp_nd
+    value = torch.sum(torch.sum(mask * pts, dim=1), dim=1)
+    if not want_grads:
+        return value
+
+    deta, dlogphi = _grads_from_d(
+        gt_b, dt, d, sp_d, sp_nd, em, phi_d, log_phi.to(dtype).unsqueeze(1)
+    )
+    return value, _dalpha_small(X, mask * deta), torch.sum(mask * dlogphi, dim=1)
+
+
 def delta_increment_terms(gt, dlo, d, sp_d, sp_nd, d0, sp_d0, sig_neg_d0):
     """Hybrid delta-form softplus increments -> (phi_sp, inc_neg).
 
@@ -278,12 +325,7 @@ def glm_delta(
     gt_b = {k: ([t.unsqueeze(1) for t in v] if isinstance(v, list) else v.unsqueeze(1))
             for k, v in gt.items()}
 
-    # delta_eta[b, s, g] = sum_c X[s, c] * (alpha - alpha0)[b, c, g], as C
-    # multiply-adds (the design has a handful of columns)
-    da = alpha - alpha0
-    delta_eta = torch.zeros((alpha.shape[0],) + counts.shape, dtype=dtype, device=X.device)
-    for c in range(X.shape[1]):
-        delta_eta = delta_eta + X[None, :, c, None] * da[:, None, c, :]
+    delta_eta = _eta_small(X, torch.zeros_like(X[:, 0]), alpha - alpha0)
     delta_log_phi = gt_b["log_phi_c"] + sigma_raw0  # log_phi - log_phi0
     dlo = delta_eta - delta_log_phi
     d = d0 + dlo
@@ -300,8 +342,4 @@ def glm_delta(
     deta, dlogphi = _grads_from_d(
         gt_b, dt, d, sp_d, sp_nd, em, phi_d, log_phi.to(dtype).unsqueeze(1)
     )
-    deta = mask * deta
-    dalpha = torch.stack(
-        [torch.sum(X[None, :, c, None] * deta, dim=1) for c in range(X.shape[1])], dim=1
-    )
-    return value, dalpha, torch.sum(mask * dlogphi, dim=1)
+    return value, _dalpha_small(X, mask * deta), torch.sum(mask * dlogphi, dim=1)

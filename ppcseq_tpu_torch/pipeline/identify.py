@@ -1,19 +1,21 @@
 """Two-pass Bayesian outlier identification in torch
-(ppcseq_tpu/pipeline/identify.py, VB branch; reference R/methods.R:74-367).
+(ppcseq_tpu/pipeline/identify.py, VB and HMC branches; reference
+R/methods.R:74-367).
 
 `identify_outliers` runs:
   1. validation + threshold/draw-count math (R/methods.R:110-195)
   2. data prep: gene selection, indexing, design matrix, TMM exposure
      (R/methods.R:198-238), on the host
-  3. PASS 1 "discovery": a VB fit and the exact CI at the permissive
-     threshold flag candidate outliers (R/methods.R:268-300)
-  4. PASS 2 "test": a VB refit with those points masked out of the
+  3. PASS 1 "discovery": a fit (VB, or jittered HMC with an ADVI warm
+     start) and the exact CI at the permissive threshold flag candidate
+     outliers (R/methods.R:268-300)
+  4. PASS 2 "test": a refit with those points masked out of the
      likelihood (truncation), then CIs at the user FP level
      (R/methods.R:320-342)
   5. merge into a per-transcript nested result (R/methods.R:344-365)
 
 The fits and the posterior-predictive simulation run on one explicit
-`device`; the MCMC samplers, meshes and checkpoints are not ported yet.
+`device`; NUTS, ChEES, meshes and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 
 from ppcseq_tpu_torch.data import ingest
 from ppcseq_tpu_torch.formula.design import create_design_matrix, parse_formula
-from ppcseq_tpu_torch.infer.advi import advi_sample, vb_iterative
+from ppcseq_tpu_torch.infer.advi import advi_sample, fit_advi, vb_iterative
+from ppcseq_tpu_torch.infer.diagnostics import summarize
+from ppcseq_tpu_torch.infer.hmc import run_hmc
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.norm.tmm import sample_scaling
 from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
@@ -37,7 +41,8 @@ from ppcseq_tpu_torch.utils import constants as K
 from ppcseq_tpu_torch.utils.device import resolve_device, working_dtype
 from ppcseq_tpu_torch.utils.log import breadcrumb, timed
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1: later slices)"
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
 
 
 @dataclass
@@ -91,13 +96,16 @@ def do_inference(
     to_exclude: pd.DataFrame | None = None,
     truncation_compensation: float = 1.0,
     pass_fit: bool = False,
+    mcmc_sampler: str = "hmc",
+    hmc_adapt_trajectory: bool = False,
     device="cpu",
     dtype=torch.float32,
 ) -> InferenceResult:
-    """One VB fit + CI extraction + outlier annotation (reference
-    R/utilities.R:1321-1547)."""
+    """One fit + CI extraction + outlier annotation (reference
+    R/utilities.R:1321-1547): VB, or with approximate_posterior_inference
+    False, jittered HMC from an ADVI warm start."""
     if not approximate_posterior_inference:
-        raise NotImplementedError(f"MCMC inference is {_NOT_PORTED}")
+        _check_sampler(mcmc_sampler, hmc_adapt_trajectory)
     breadcrumb("executing do_inference")
     md = ingest.build_model_data(
         my_df, sample, transcript, abundance, do_check,
@@ -110,7 +118,7 @@ def do_inference(
     )
     # delta-form likelihood baseline (float32-smooth evaluation)
     data = nb_model.with_baseline(data, dims)
-    logp = functools.partial(nb_model.log_joint, data=data, dims=dims)
+    logp = functools.partial(nb_model.flat_logp(dims), data=data)
     init = nb_model.smart_init(data, dims)
 
     # If CI analysis is approximated, only ~1000 actual draws are needed
@@ -122,17 +130,22 @@ def do_inference(
     )
     g_fit, g_draws, g_ci = seed_generators(seed, device)
 
-    with timed("variational fit"):
-        res = vb_iterative(
-            logp, dims.dim, g_fit,
-            max_iter=K.VB_MAX_ITER,
-            tol_rel_obj=K.VB_TOL_REL_OBJ,  # hard-coded in reference R/utilities.R:1493
-            init_mean=init,
-            device=device,
-            dtype=dtype,
-        )
-    thetas = advi_sample(res, g_draws, draws_practical)
-    fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
+    if approximate_posterior_inference:
+        with timed("variational fit"):
+            res = vb_iterative(
+                logp, dims.dim, g_fit,
+                max_iter=K.VB_MAX_ITER,
+                tol_rel_obj=K.VB_TOL_REL_OBJ,  # hard-coded in reference R/utilities.R:1493
+                init_mean=init,
+                device=device,
+                dtype=dtype,
+            )
+        thetas = advi_sample(res, g_draws, draws_practical)
+        fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
+    else:
+        with timed("hmc fit"):
+            res, fit_info = _hmc_fit(logp, dims, init, draws_practical, g_fit, device, dtype)
+        thetas = res.draws.reshape(-1, dims.dim)
 
     return _finish_inference(
         thetas=thetas, fit=res if pass_fit else fit_info,
@@ -145,6 +158,66 @@ def do_inference(
         truncation_compensation=truncation_compensation,
         pass_fit=pass_fit, generator=g_ci,
     )
+
+
+def _check_sampler(mcmc_sampler: str, hmc_adapt_trajectory: bool) -> None:
+    if mcmc_sampler == "nuts":
+        raise _not_ported("mcmc_sampler='nuts'", 10)
+    if mcmc_sampler != "hmc":
+        raise ValueError(f"unknown mcmc_sampler {mcmc_sampler!r} (use 'hmc' or 'nuts')")
+    if hmc_adapt_trajectory:
+        raise _not_ported("hmc_adapt_trajectory=True (ChEES)", 9)
+
+
+def _hmc_fit(logp, dims, init, draws_practical, generator, device, dtype):
+    """ADVI warm start, then jittered HMC with the divergence-retry ladder
+    (identify.py:216-270, 296-309 of the JAX package). Returns the
+    HMCResult and the fit info."""
+    # a quick meanfield fit supplies the initial point and the diagonal mass
+    warm = fit_advi(
+        logp, dims.dim, generator,
+        init_mean=init, tol_rel_obj=0.01, learning_rate=0.3,
+        eval_every=50, grad_samples=4, device=device, dtype=dtype,
+    )
+    inv_mass = torch.exp(2.0 * warm.log_sd)
+    breadcrumb("executing hmc fit")
+    chains = K.HMC_CHAINS
+    per_chain = int(np.ceil(draws_practical / chains))
+    # divergence-retry ladder (the MCMC analog of vb_iterative, reference
+    # R/utilities.R:246-278): tighten target accept if more than 2% of
+    # proposals diverge
+    for ta in (0.8, 0.95, 0.99):
+        res = run_hmc(
+            logp, dims.dim, generator,
+            num_chains=chains,
+            num_warmup=K.HMC_WARMUP,
+            num_draws=per_chain,
+            num_leapfrog=K.HMC_LEAPFROG,
+            target_accept=ta,
+            init_theta=warm.mean,
+            inv_mass=inv_mass,
+            device=device,
+            dtype=dtype,
+        )
+        if res.divergences.sum() <= 0.02 * chains * per_chain:
+            break
+        print(f"ppcseq says: {int(res.divergences.sum())} divergent "
+              f"transitions at target_accept={ta}; retrying tighter")
+    fit_info = {
+        "method": "hmc",
+        "chains": chains,
+        "divergences": res.divergences.tolist(),
+        "step_size": res.step_size,
+        "target_accept": ta,
+    }
+    # convergence diagnostics on the parameters that drive the calls (slope
+    # block + the 6 hyperparameters); only these columns leave the device
+    if res.draws.shape[1] >= 4:
+        sel = np.r_[0:6, 6 + 2 * dims.G : 6 + 2 * dims.G + dims.n_check]
+        d = summarize(res.draws[:, :, torch.as_tensor(sel, device=res.draws.device)].cpu().numpy())
+        fit_info["rhat_max"] = d["rhat_max"]
+        fit_info["ess_min"] = d["ess_min"]
+    return res, fit_info
 
 
 def _finish_inference(
@@ -236,6 +309,8 @@ def identify_outliers(
     just_discovery: bool = False,
     seed: int | None = None,
     adj_prob_theshold_2: float | None = None,
+    mcmc_sampler: str = "hmc",
+    hmc_adapt_trajectory: bool = False,
     checkpoint_dir: str | None = None,
     mesh=None,
     device="cuda",
@@ -243,23 +318,26 @@ def identify_outliers(
 ) -> pd.DataFrame:
     """Identify deleterious outlier observations per significant transcript.
 
-    Mirrors ppcseq_tpu.identify_outliers (reference R/methods.R:74-98) on
-    its VB branch and returns the same nested DataFrame: one row per checked
-    transcript with [transcript, sample_wise_data, ppc_samples_failed,
+    Mirrors ppcseq_tpu.identify_outliers (reference R/methods.R:74-98) and
+    returns the same nested DataFrame: one row per checked transcript with
+    [transcript, sample_wise_data, ppc_samples_failed,
     tot_deleterious_outliers*]. `device` takes the place of the JAX
     package's `mesh`: the fits and the CI simulation run there (float32 on
     CUDA; `dtype` is honoured on the CPU). `cores` is accepted for API
-    parity and unused. MCMC inference, `mesh`, `checkpoint_dir` and
-    `additional_parameters_to_save` raise NotImplementedError.
+    parity and unused. approximate_posterior_inference=False runs the
+    jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains, ADVI warm
+    start). `mcmc_sampler="nuts"`, `hmc_adapt_trajectory=True`, `mesh`,
+    `checkpoint_dir`, `additional_parameters_to_save` and
+    `save_generated_quantities` raise NotImplementedError.
     """
     if not approximate_posterior_inference:
-        raise NotImplementedError(f"approximate_posterior_inference=False (MCMC) is {_NOT_PORTED}")
+        _check_sampler(mcmc_sampler, hmc_adapt_trajectory)
     if mesh is not None:
-        raise NotImplementedError(f"mesh is {_NOT_PORTED}; pass device= instead")
+        raise _not_ported("mesh (pass device= instead)", 12)
     if checkpoint_dir is not None:
-        raise NotImplementedError(f"checkpoint_dir is {_NOT_PORTED}")
+        raise _not_ported("checkpoint_dir", 11)
     if additional_parameters_to_save:
-        raise NotImplementedError(f"additional_parameters_to_save is {_NOT_PORTED}")
+        raise _not_ported("additional_parameters_to_save", 11)
     device = resolve_device(device)
     dtype = working_dtype(device, dtype)
     if device.type == "cuda":
@@ -292,10 +370,12 @@ def identify_outliers(
              "tot_deleterious_outliers": []}
         )
 
-    if save_generated_quantities:
+    if approximate_posterior_inference and save_generated_quantities:
         raise ValueError(
             "Variational Bayes does not support saving generated quantities, use sampling"
         )
+    if save_generated_quantities:
+        raise _not_ported("save_generated_quantities", 11)
     if not (0 <= percent_false_positive_genes <= 100) or np.isnan(percent_false_positive_genes):
         raise ValueError("percent_false_positive_genes must be between 0 and 100")
     if data[transcript].isna().any():
@@ -317,7 +397,9 @@ def identify_outliers(
     if approximate_posterior_analysis is None:
         approximate_posterior_analysis = how_many_posterior_draws_2 > K.APPROX_ANALYSIS_DRAW_THRESHOLD
     if not approximate_posterior_analysis:
-        intercept_b, slope_b = K.MEM_REGRESSION_VB
+        intercept_b, slope_b = (
+            K.MEM_REGRESSION_MCMC if not approximate_posterior_inference else K.MEM_REGRESSION_VB
+        )
         required = intercept_b + how_many_posterior_draws_2 * slope_b
         if required > _available_memory_bytes():
             import warnings
@@ -354,7 +436,8 @@ def identify_outliers(
         do_check="do_check___", X=X, sorted_sample_names=sorted_sample_names,
         exposure_by_sample=exposure_by_sample,
         approximate_posterior_inference=approximate_posterior_inference,
-        pass_fit=pass_fit,
+        pass_fit=pass_fit, mcmc_sampler=mcmc_sampler,
+        hmc_adapt_trajectory=hmc_adapt_trajectory,
         # the reference reuses the same seed for both passes
         # (R/methods.R:284, 340-341)
         seed=seed, device=device, dtype=dtype,
@@ -410,9 +493,11 @@ def identify_outliers(
     result.attrs["abundance_column"] = abundance
     result.attrs["sample_column"] = sample
     result.attrs["formula"] = formula
-    result.attrs["vb_iterations"] = tuple(
-        f.iterations if pass_fit else f["iterations"] for f in (res_discovery.fit, res_test.fit)
-    )
+    if approximate_posterior_inference:
+        result.attrs["vb_iterations"] = tuple(
+            f.iterations if pass_fit else f["iterations"]
+            for f in (res_discovery.fit, res_test.fit)
+        )
     if pass_fit:
         result.attrs["fit 1"] = res_discovery.fit
         result.attrs["fit 2"] = res_test.fit

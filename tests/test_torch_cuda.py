@@ -1,4 +1,5 @@
-"""The CUDA likelihood kernel against its plain torch version, on the card.
+"""The CUDA likelihood kernels against their plain torch versions, and a
+short HMC run through each likelihood route, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. They import
 no JAX, so the card can run them without the JAX package's test setup:
@@ -6,14 +7,22 @@ no JAX, so the card can run them without the JAX package's test setup:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from ppcseq_tpu_torch.infer.hmc import run_hmc
 from ppcseq_tpu_torch.model import nb_model
-from ppcseq_tpu_torch.ops import nb_fast, nb_kernel
+from ppcseq_tpu_torch.ops import nb_fast, nb_grad, nb_kernel
 
 pytestmark = pytest.mark.cuda
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
 
 
 @pytest.fixture(params=[1, 2, 3], ids=lambda c: f"C{c}")
@@ -21,8 +30,7 @@ def cuda_case(request):
     """Float32 model data on the card (one fully masked gene, ~5% excluded
     points) with C design columns, and B=5 parameter rows, from a numpy
     seed."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _needs_card()
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
     S, G, C, B = 21, 300, request.param, 5
@@ -41,48 +49,168 @@ def cuda_case(request):
     return data, alpha, log_phi
 
 
-def _plain(data, alpha, log_phi, want_grads=True):
-    return nb_fast.glm_delta(
-        data.X, data.counts, data.like_mask, data.alpha0, data.sigma_raw0, data.d0,
-        data.sp_d0, data.sig_neg_d0, data.y_sp0, alpha, log_phi, want_grads,
-    )
+def _scaled(got, want):
+    """max |got - want| / (1 + |want|), elementwise."""
+    want = want.double()
+    return float(((got.double() - want).abs() / (1 + want.abs())).max())
 
 
-def test_kernel_matches_plain_version(cuda_case):
-    """Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4, exactly zero gradients
-    for the masked gene; one launch counted per call."""
+def _within(got, want, rtol, atol):
+    """assert_allclose's |got - want| <= atol + rtol |want|."""
+    return bool(((got.double() - want.double()).abs()
+                 <= atol + rtol * want.double().abs()).all())
+
+
+def _f64(data):
+    return dataclasses.replace(data, **{
+        f.name: getattr(data, f.name).double() for f in dataclasses.fields(data)
+        if f.name != "host" and getattr(data, f.name) is not None
+        and getattr(data, f.name).is_floating_point()})
+
+
+def _launch(data, alpha, log_phi, kernel):
+    """The kernel's (value, dalpha, dlog_phi); value None for K5 alone."""
+    d = data
+    if kernel == "nb_glm_delta":
+        return nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0, log_phi,
+                                      d.sigma_raw0, want_grads=True)
+    if kernel == "nb_glm_plain":
+        return nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask, alpha,
+                                      log_phi, want_grads=True)
+    if kernel == "nb_glm_fused":
+        return nb_kernel.launch_fused(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0, log_phi,
+                                      d.sigma_raw0, want_grads=True)
+    args = (d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi)
+    if kernel == "nb_glm_stable":
+        return (nb_kernel.launch_stable_fwd(*args), *nb_kernel.launch_stable_bwd(*args))
+    return (None, *nb_kernel.launch_stable_bwd(*args))  # nb_glm_stable_bwd
+
+
+def _plain(data, alpha, log_phi, kernel):
+    """The plain version's (value, dalpha, dlog_phi) of `kernel`."""
+    d = data
+    if kernel == "nb_glm_delta":
+        return nb_fast.glm_delta(d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0, d.d0,
+                                 d.sp_d0, d.sig_neg_d0, d.y_sp0, alpha, log_phi, True)
+    if kernel == "nb_glm_plain":
+        return nb_fast.glm_plain(d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi,
+                                 True)
+    grads = nb_grad.likelihood_grads(d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi)
+    value = (nb_model.delta_likelihood if kernel == "nb_glm_fused"
+             else nb_model.stable_likelihood)(d, alpha, log_phi)
+    return (value, *grads)
+
+
+# Values are held at rtol 2e-5 and gradients at |d|/(1+|g|) < 1e-4 against
+# the plain version. K3 and K5 compute the gradient in another grouping than
+# their plain version; where the plain float32 gradient is itself 1e-4 or
+# more from float64, they are held instead at tests/test_nb_kernel.py's
+# tolerances (rtol, atol(want)) AND at most a stated multiple of the plain
+# version's own |d|/(1+|g|) from float64 (K3 1.2x, K5 3.2x measured on the
+# H100 at the chip_smoke.py shapes).
+_GRAD_FALLBACK = {
+    "nb_glm_fused": (2e-3, lambda w: 2e-3 * (1 + float(w.abs().max())), 2.0),
+    "nb_glm_stable": (3e-3, lambda w: 3e-2, 4.0),
+}
+
+
+def _grads_ok(kernel, kern, plain, plain64):
+    if all(_scaled(k, p) < 1e-4 for k, p in zip(kern, plain)):
+        return True
+    if kernel not in _GRAD_FALLBACK:
+        return False
+    rtol, atol, multiple = _GRAD_FALLBACK[kernel]
+    p64 = max(_scaled(p, w) for p, w in zip(plain, plain64))
+    return p64 >= 1e-4 and all(
+        _within(k, p, rtol, atol(p)) and _scaled(k, w) <= multiple * p64
+        for k, p, w in zip(kern, plain, plain64))
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta", "nb_glm_plain", "nb_glm_fused",
+                                    "nb_glm_stable"])
+def test_kernel_matches_plain_version(cuda_case, kernel):
+    """Each kernel against its plain version (value rtol 2e-5; gradients as
+    _grads_ok); exactly zero gradients for the masked gene; one launch
+    counted per kernel call."""
     data, alpha, log_phi = cuda_case
-    before = nb_kernel.LAUNCHES
-    vk, dak, dlk = nb_kernel.launch(data.X, data.counts, data.like_mask, data.d0, alpha,
-                                    data.alpha0, log_phi, data.sigma_raw0, want_grads=True)
-    assert nb_kernel.LAUNCHES == before + 1
-    vp, dap, dlp = _plain(data, alpha, log_phi)
+    nb_kernel.reset_launches()
+    kern = _launch(data, alpha, log_phi, kernel)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(vk.cpu().numpy(), vp.cpu().numpy(), rtol=2e-5)
-    for gk, gp in ((dak, dap), (dlk, dlp)):
-        gp64 = gp.double().cpu().numpy()
-        assert (np.abs(gk.double().cpu().numpy() - gp64) / (1 + np.abs(gp64))).max() < 1e-4
-    assert torch.all(dak[:, :, 11] == 0) and torch.all(dlk[:, 11] == 0)
+    if kernel == "nb_glm_stable":
+        assert nb_kernel.LAUNCHES["nb_glm_stable_fwd"] == nb_kernel.LAUNCHES["nb_glm_stable_bwd"] == 1
+    else:
+        assert nb_kernel.LAUNCHES[kernel] == 1
+    assert sum(nb_kernel.LAUNCHES.values()) == (2 if kernel == "nb_glm_stable" else 1)
+    plain = _plain(data, alpha, log_phi, kernel)
+    plain64 = _plain(_f64(data), alpha.double(), log_phi.double(), kernel)
+    np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=2e-5)
+    assert _grads_ok(kernel, kern[1:], plain[1:], plain64[1:])
+    assert torch.all(kern[1][:, :, 11] == 0) and torch.all(kern[2][:, 11] == 0)
 
 
-def test_autograd_and_value_only_paths_launch_the_kernel(cuda_case):
+# entry -> (kernel whose gradients autograd must return, launches of one
+# autograd call plus one no_grad call)
+_ENTRIES = {
+    "nb_glm_likelihood_fast": ("nb_glm_delta", {"nb_glm_delta": 2}),
+    "nb_glm_likelihood_fast-nobaseline": ("nb_glm_plain", {"nb_glm_plain": 2}),
+    "nb_glm_likelihood": ("nb_glm_stable_bwd", {"nb_glm_stable_fwd": 2, "nb_glm_stable_bwd": 1}),
+    "nb_glm_likelihood_fused": ("nb_glm_fused", {"nb_glm_fused": 2}),
+}
+
+
+@pytest.mark.parametrize("entry", list(_ENTRIES))
+def test_entries_launch_their_kernels(cuda_case, entry):
+    """Autograd and no_grad calls of each entry launch the kernels of its
+    route and nothing else, and autograd returns exactly the gradients the
+    route's kernel gives when launched directly."""
     data, alpha, log_phi = cuda_case
+    if entry.endswith("-nobaseline"):
+        data = dataclasses.replace(data, d0=None, alpha0=None, sigma_raw0=None, sp_d0=None,
+                                   sig_neg_d0=None, y_sp0=None)
+    fn = getattr(nb_kernel, entry.split("-")[0])
+    kernel, want = _ENTRIES[entry]
     a = alpha.clone().requires_grad_(True)
-    before = nb_kernel.LAUNCHES
-    value = nb_kernel.nb_glm_likelihood(data, a, log_phi)
+    p = log_phi.clone().requires_grad_(True)
+    nb_kernel.reset_launches()
+    value = fn(data, a, p)
     value.sum().backward()
     with torch.no_grad():
-        v_only = nb_kernel.nb_glm_likelihood(data, alpha, log_phi)
-    assert nb_kernel.LAUNCHES == before + 2
-    _, dak, _ = nb_kernel.launch(data.X, data.counts, data.like_mask, data.d0, alpha,
-                                 data.alpha0, log_phi, data.sigma_raw0, want_grads=True)
+        v_only = fn(data, alpha, log_phi)
     torch.cuda.synchronize()
-    assert torch.equal(a.grad, dak)
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == want
     np.testing.assert_allclose(v_only.cpu().numpy(), value.detach().cpu().numpy(), rtol=1e-6)
+    _, dak, dlk = _launch(data, alpha, log_phi, kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(a.grad, dak) and torch.equal(p.grad, dlk)
 
 
 def test_kernel_refuses_wrong_dtype(cuda_case):
     data, alpha, log_phi = cuda_case
     with pytest.raises(TypeError, match="dtype"):
-        nb_kernel.launch(data.X.double(), data.counts, data.like_mask, data.d0, alpha,
-                         data.alpha0, log_phi, data.sigma_raw0, want_grads=False)
+        nb_kernel.launch_delta(data.X.double(), data.counts, data.like_mask, data.d0, alpha,
+                               data.alpha0, log_phi, data.sigma_raw0, want_grads=False)
+
+
+@pytest.mark.parametrize("name", ["plain", "fast", "pallas", "pallas_fused"])
+def test_short_hmc_run_on_the_card(name):
+    """A short HMC run through each flat_logp route: finite draws, the
+    route's kernels launched."""
+    _needs_card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    S, G = 8, 24
+    counts = rng.poisson(np.exp(rng.normal(4.0, 1.0, size=(1, G))), size=(S, G))
+    X = np.column_stack([np.ones(S), (np.arange(S) >= S // 2).astype(float)])
+    data, dims = nb_model.prepare_data(counts, X, rng.normal(0.0, 0.1, S), 4, device=dev)
+    data = nb_model.with_baseline(data, dims)
+    nb_kernel.reset_launches()
+    res = run_hmc(nb_model.flat_logp(dims, name), dims.dim,
+                  torch.Generator(device=dev).manual_seed(0), data=data, num_chains=16,
+                  num_warmup=20, num_draws=10, num_leapfrog=8,
+                  init_theta=nb_model.smart_init(data, dims), device=dev)
+    assert torch.isfinite(res.draws).all()
+    assert res.draws.shape == (16, 10, dims.dim)
+    launched = {k for k, v in nb_kernel.LAUNCHES.items() if v}
+    assert launched == {"plain": set(), "fast": {"nb_glm_delta"},
+                        "pallas": {"nb_glm_stable_fwd", "nb_glm_stable_bwd"},
+                        "pallas_fused": {"nb_glm_fused"}}[name]

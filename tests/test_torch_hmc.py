@@ -1,0 +1,142 @@
+"""The port's jittered HMC (ppcseq_tpu_torch.infer.hmc): its update rules
+against a NumPy transcription of ppcseq_tpu/infer/hmc.py:108-146 at fixed
+inputs (float64, rtol 1e-12), and its statistics as tests/test_hmc.py
+checks them (correlated-Gaussian moments; the NB model's HMC means against
+ADVI)."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from ppcseq_tpu_torch.infer.advi import fit_advi
+from ppcseq_tpu_torch.infer.diagnostics import summarize
+from ppcseq_tpu_torch.infer.hmc import dual_average, leapfrog, logp_and_grad, run_hmc
+from ppcseq_tpu_torch.model import nb_model
+
+torch.set_num_threads(2)
+
+
+def _np_leapfrog(z, r, g, eps, inv_mass, grad):
+    """hmc.py:108-114 in NumPy."""
+    r_half = r + 0.5 * eps * g
+    z1 = z + eps * (r_half * inv_mass[None, :])
+    lp1, g1 = grad(z1)
+    return z1, r_half + 0.5 * eps * g1, g1, lp1
+
+
+def _np_dual_average(log_eps_avg, h_sum, a_mean, i, mu, target):
+    """hmc.py:134-146 in NumPy (gamma 0.05, t0 10, kappa 0.75)."""
+    count = i + 1.0
+    w = 1.0 / (count + 10.0)
+    h_sum = (1 - w) * h_sum + w * (target - a_mean)
+    log_eps = mu - np.sqrt(count) / 0.05 * h_sum
+    eta = count ** (-0.75)
+    return log_eps, eta * log_eps + (1 - eta) * log_eps_avg, h_sum
+
+
+def test_leapfrog_and_dual_averaging_match_numpy_transcription():
+    rng = np.random.default_rng(0)
+    D, chains = 5, 3
+    A = rng.normal(size=(D, D))
+    prec = A @ A.T + np.eye(D)
+    z, r = rng.normal(size=(chains, D)), rng.normal(size=(chains, D))
+    inv_mass = rng.uniform(0.5, 2.0, D)
+
+    def np_grad(x):
+        return -0.5 * np.einsum("bi,ij,bj->b", x, prec, x), -x @ prec
+
+    prec_t = torch.as_tensor(prec)
+
+    def t_grad(x):
+        return logp_and_grad(lambda y: -0.5 * torch.einsum("bi,ij,bj->b", y, prec_t, y), x)
+
+    lp, g = np_grad(z)
+    tz, tr, tg = (torch.as_tensor(a) for a in (z, r, g))
+    for _ in range(7):
+        z, r, g, lp = _np_leapfrog(z, r, g, 0.13, inv_mass, np_grad)
+        tz, tr, tg, tlp = leapfrog(tz, tr, tg, 0.13, torch.as_tensor(inv_mass), t_grad)
+    for got, want in ((tz, z), (tr, r), (tg, g), (tlp, lp)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+
+    mu = math.log(10 * 0.05)
+    state_np = (mu - math.log(10.0), 0.0)
+    state_t = (torch.tensor(mu - math.log(10.0), dtype=torch.float64),
+               torch.zeros((), dtype=torch.float64))
+    for i, a in enumerate(rng.uniform(0, 1, 30)):
+        le, lea, h = _np_dual_average(*state_np, a, i, mu, 0.8)
+        tle, tlea, th = dual_average(*state_t, torch.tensor(a, dtype=torch.float64), i, mu, 0.8)
+        state_np, state_t = (lea, h), (tlea, th)
+        np.testing.assert_allclose([float(tle), float(tlea), float(th)], [le, lea, h], rtol=1e-12)
+
+
+def test_non_finite_density_and_gradient_are_cleaned():
+    def logp(x):
+        return torch.where(x[:, 0] > 0, -torch.sqrt(x[:, 0]) * x[:, 1], torch.full_like(x[:, 0],
+                                                                                       math.nan))
+
+    lp, g = logp_and_grad(logp, torch.tensor([[4.0, 1.0], [-1.0, 2.0], [0.0, 1.0]],
+                                             dtype=torch.float64))
+    assert float(lp[0]) == -2.0 and lp[1] == -math.inf
+    assert torch.all(torch.isfinite(g)) and torch.all(g[1] == 0)
+
+
+def test_hmc_correlated_gaussian_moments():
+    """tests/test_hmc.py:10-34 on the port."""
+    D = 8
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(D, D))
+    cov = A @ A.T / D + np.eye(D) * 0.5
+    prec = torch.as_tensor(np.linalg.inv(cov))
+    mu = rng.normal(size=D)
+    mu_t = torch.as_tensor(mu)
+
+    def logp(x):
+        d = x - mu_t
+        return -0.5 * torch.einsum("bi,ij,bj->b", d, prec, d)
+
+    gen = torch.Generator().manual_seed(0)
+    res = run_hmc(logp, D, gen, num_chains=64, num_warmup=200, num_draws=300, num_leapfrog=16,
+                  inv_mass=np.diag(cov).copy(), dtype=torch.float64)
+    assert res.draws.shape == (64, 300, D)
+    assert res.divergences.sum() == 0
+    assert 0.6 < res.accept_prob.mean() < 0.99
+    draws = res.draws.reshape(-1, D).numpy()
+    np.testing.assert_allclose(draws.mean(axis=0), mu, atol=0.08)
+    np.testing.assert_allclose(np.cov(draws.T), cov, atol=0.1 * np.abs(cov).max())
+    assert summarize(res.draws.numpy())["rhat_max"] < 1.05
+
+
+def test_hmc_nb_model_agrees_with_advi():
+    """tests/test_hmc.py:95-125 on the port: data without a baseline, so
+    flat_logp(dims) runs K2's plain version (nb_fast.glm_plain)."""
+    rng = np.random.default_rng(1)
+    S, G, n_check = 8, 24, 4
+    counts = rng.poisson(np.exp(rng.normal(4.0, 1.0, size=(1, G))), size=(S, G))
+    X = np.column_stack([np.ones(S), (np.arange(S) >= S // 2).astype(float)])
+    exposure = rng.normal(0.0, 0.1, size=S)
+    data, dims = nb_model.prepare_data(counts, X, exposure, n_check, dtype=torch.float32)
+    assert data.d0 is None
+    logp = nb_model.flat_logp(dims)
+    init = nb_model.smart_init(data, dims)
+
+    warm = fit_advi(lambda th: logp(th, data), dims.dim, torch.Generator().manual_seed(2),
+                    init_mean=init, tol_rel_obj=0.01, learning_rate=0.2, eval_every=50)
+    res = run_hmc(logp, dims.dim, torch.Generator().manual_seed(3), data=data,
+                  num_chains=32, num_warmup=60, num_draws=60, num_leapfrog=16,
+                  init_theta=warm.mean, inv_mass=torch.exp(2.0 * warm.log_sd),
+                  target_accept=0.95)
+    assert res.divergences.sum() <= 0.01 * res.draws.shape[0] * res.draws.shape[1]
+    assert res.num_leapfrog >= 32 * 120 * math.ceil(0.4 * 16)
+    hmc_mean = res.draws.reshape(-1, dims.dim).mean(dim=0).numpy()
+    lo, hi = nb_model._offsets(dims)["intercept"]
+    np.testing.assert_allclose(hmc_mean[lo:hi], warm.mean.numpy()[lo:hi], atol=0.25)
+
+
+def test_hmc_refuses_what_is_not_ported():
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, adapt_trajectory=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, mesh=object())

@@ -131,14 +131,14 @@ def test_autograd_function_gradients_equal_plain_version():
     a = torch.as_tensor(alpha).requires_grad_(True)
     p = torch.as_tensor(log_phi).requires_grad_(True)
     w = torch.tensor([0.5, -1.0, 2.0], dtype=torch.float64)
-    value = nb_kernel.nb_glm_likelihood(tdata, a, p)
+    value = nb_kernel.nb_glm_likelihood_fast(tdata, a, p)
     (w * value).sum().backward()
     v, da, dl = _plain(tdata, a.detach(), p.detach())
     assert torch.equal(value.detach(), v)
     assert torch.equal(a.grad, w[:, None, None] * da)
     assert torch.equal(p.grad, w[:, None] * dl)
     with torch.no_grad():
-        assert torch.equal(nb_kernel.nb_glm_likelihood(tdata, a, p), v)
+        assert torch.equal(nb_kernel.nb_glm_likelihood_fast(tdata, a, p), v)
 
 
 def test_wrapper_refuses_cpu_tensors_for_the_kernel_and_missing_baseline():
@@ -147,9 +147,11 @@ def test_wrapper_refuses_cpu_tensors_for_the_kernel_and_missing_baseline():
     a = torch.as_tensor(alpha, dtype=torch.float32)
     p = torch.as_tensor(log_phi, dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        nb_kernel.launch(tdata.X, tdata.counts, tdata.like_mask, tdata.d0, a,
-                         tdata.alpha0, p, tdata.sigma_raw0, want_grads=True)
+        nb_kernel.launch_delta(tdata.X, tdata.counts, tdata.like_mask, tdata.d0, a,
+                               tdata.alpha0, p, tdata.sigma_raw0, want_grads=True)
+    # the one-pass delta-form entry (K3) needs the baseline; the hoisted
+    # entry (K1/K2) and the stable entry (K4/K5) do not
     bare = dataclasses.replace(tdata, d0=None)
     with pytest.raises(ValueError, match="baseline"):
-        nb_kernel.nb_glm_likelihood(bare, a, p)
+        nb_kernel.nb_glm_likelihood_fused(bare, a, p)
 

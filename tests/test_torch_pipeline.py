@@ -89,7 +89,8 @@ def test_host_prep_equals_jax(sig_counts):
 
 
 def test_unported_options_raise(sig_counts):
-    for kw in (dict(approximate_posterior_inference=False), dict(mesh=object()),
+    for kw in (dict(approximate_posterior_inference=False, mcmc_sampler="nuts"),
+               dict(mesh=object()),
                dict(checkpoint_dir="ckpt"), dict(additional_parameters_to_save=("sigma",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             identify_outliers(sig_counts, **{**_COMMON, **kw})
