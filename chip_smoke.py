@@ -10,14 +10,21 @@ so the exit code is non-zero):
   3. kernel  the five kernels (K1-K5) against their plain torch versions on
              the card, in float32, at (B, S, G) = (1, 21, 515) and
              (128, 21, 515) on the bundled cohort (15 checked genes + 500
-             controls) and (8, 100, 50000) on the synthetic scale cohort.
+             controls) and (8, 100, 50000) on the synthetic scale cohort;
+             K1 and K2 also value-only at (100, 21, 515) (the ELBO) and at
+             (1, 100, 600) (the 50k pipeline cohort's ADVI step).
              Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4; for K3's and
              K5's gradients, where the plain version itself is further than
              1e-4 from its float64 evaluation, the tolerance of
              tests/test_nb_kernel.py and a bound on the kernel's own error
              against float64 (_GRAD_FALLBACK).
-             Exactly zero gradients for a masked gene; median CUDA-event
-             times of kernel and plain version.
+             Exactly zero gradients for a masked gene. Per row:
+             device_us (device time per call: torch.profiler over many
+             back-to-back calls), cuda_kernels_per_call, call_ms (median
+             CUDA events around one call: what a caller waits), plain_ms,
+             and bytes, ops, bound_us, bound_by, share_of_bound
+             (= bound_us / device_us) from nb_kernel.work() on this run's
+             branch shares.
   4. hmc     jittered HMC at full width: (a) bench.py's configuration
              (bundled cohort, no baseline, so flat_logp(dims) runs K2; ADVI
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
@@ -33,7 +40,8 @@ so the exit code is non-zero):
              configuration (CYP1A1 and LYZ must be called).
 Each path runs with the kernel launch counts set to 0 just before it and
 read just after; every kernel of the path must have launched. Then the
-card's name and power limit, a JSON line describing the kernels, and, last,
+card's name and power limit, a JSON line describing the kernels (with
+each kernel's launches on every path), and, last,
 {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero at once and prints no result.
@@ -44,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -74,6 +83,29 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _device_us(fn, calls: int):
+    """(device µs per call, CUDA kernels per call, kernel records per call)
+    of fn(), which launches each of its CUDA kernels once: under
+    torch.profiler over `calls` back-to-back calls, the sum over the
+    distinct kernels of each one's mean self device time. (The profiler may
+    drop some kernel records, ~10% in one H100 run, so the records per call
+    can fall below the kernels per call; a mean is robust to that.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.count]
+    dev_us = sum(e.self_device_time_total / e.count for e in kernels)
+    if dev_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return dev_us, len(kernels), sum(e.count for e in kernels) / calls
 
 
 def _np(t):
@@ -154,24 +186,29 @@ def _kernel_case(counts, X, exposure, n_check, B, seed, device):
     return data, alpha, log_phi, masked_gene
 
 
-def _calls(data, alpha, log_phi):
+def _calls(data, alpha, log_phi, grads=True):
     """kernel name -> (kernel call, plain call), each returning
-    (value,) or (value, dalpha, dlog_phi) for the given inputs."""
+    (value,) or (value, dalpha, dlog_phi) for the given inputs. With
+    grads=False, K1 and K2 run their value-only instantiation."""
     from ppcseq_tpu_torch.model import nb_model
     from ppcseq_tpu_torch.ops import nb_fast, nb_grad, nb_kernel
+
+    def tup(t):
+        return t if isinstance(t, tuple) else (t,)
 
     def bind(d, a, p):
         return {
             "nb_glm_delta": (
-                lambda: nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0, p,
-                                               d.sigma_raw0, want_grads=True),
-                lambda: nb_fast.glm_delta(d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0,
-                                          d.d0, d.sp_d0, d.sig_neg_d0, d.y_sp0, a, p, True)),
+                lambda: tup(nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0,
+                                                   p, d.sigma_raw0, want_grads=grads)),
+                lambda: tup(nb_fast.glm_delta(d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0,
+                                              d.d0, d.sp_d0, d.sig_neg_d0, d.y_sp0, a, p,
+                                              grads))),
             "nb_glm_plain": (
-                lambda: nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask, a, p,
-                                               want_grads=True),
-                lambda: nb_fast.glm_plain(d.X, d.exposure_rate, d.counts, d.like_mask, a, p,
-                                          True)),
+                lambda: tup(nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask,
+                                                   a, p, want_grads=grads)),
+                lambda: tup(nb_fast.glm_plain(d.X, d.exposure_rate, d.counts, d.like_mask, a, p,
+                                              grads))),
             "nb_glm_fused": (
                 lambda: nb_kernel.launch_fused(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0, p,
                                                d.sigma_raw0, want_grads=True),
@@ -202,20 +239,32 @@ def _drop_none(t):
 def phase_kernel(counts_df, device):
     import torch
 
+    from ppcseq_tpu_torch.ops import nb_kernel
     from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
 
     fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
     md = _bundled_prep(counts_df, fifteen, 500)
     bundled = (md.counts, md.X, md.exposure_rate, md.n_check)
+    c600, X600, e600, _ = synthetic_cohort(n_genes=600, n_samples=100, n_check=100, seed=0)
     c50k, X50k, e50k, _ = synthetic_cohort(n_genes=50000, n_samples=100, n_check=100, seed=0)
-    cases = [(1, bundled), (128, bundled), (8, (c50k, X50k, e50k, 100))]
+    k12 = ["nb_glm_delta", "nb_glm_plain"]
+    # (B, cohort, kernels (None: all five), gradients): the ADVI step, the
+    # 100-sample value-only ELBO and the bench HMC on the bundled cohort; the
+    # ADVI step of the 50k x 100 pipeline cohort (its checked genes + 500
+    # controls); the scale HMC
+    cases = [(1, bundled, None, True), (100, bundled, k12, False), (128, bundled, None, True),
+             (1, (c600, X600, e600, 100), k12, True), (8, (c50k, X50k, e50k, 100), None, True)]
 
     rows = []
-    for B, (counts, X, exposure, n_check) in cases:
+    for B, (counts, X, exposure, n_check), names, grads in cases:
         data, alpha, log_phi, g_m = _kernel_case(counts, X, exposure, n_check, B, 7, device)
         S, G = data.counts.shape
-        calls, calls64 = _calls(data, alpha, log_phi)
+        C = data.X.shape[1]
+        shares = nb_kernel.branch_shares(data, alpha, log_phi)
+        calls, calls64 = _calls(data, alpha, log_phi, grads)
         for name, (kern_fn, plain_fn) in calls.items():
+            if names is not None and name not in names:
+                continue
             kern, plain = _drop_none(kern_fn()), _drop_none(plain_fn())
             plain64 = _drop_none(calls64[name][1]())
             torch.cuda.synchronize()
@@ -239,15 +288,24 @@ def phase_kernel(counts_df, device):
             ok = value_ok and grad_limit is not None and zero and finite
             t_k = _time_ms(kern_fn, reps=20)
             t_p = _time_ms(plain_fn, reps=10 if G > 1000 else 20)
-            row = dict(kernel=name, B=B, S=S, G=G, value_rel_err=val_rel if has_value else None,
+            reps = 20 if G > 1000 else 200
+            dev_us, n_cuda, n_records = _device_us(kern_fn, reps)
+            w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
+            row = dict(kernel=name, B=B, S=S, G=G, grads=grads,
+                       value_rel_err=val_rel if has_value else None,
                        grad_err=grad_err, max_abs_err=mabs,
                        kernel_vs_f64=k64, plain_vs_f64=p64,
                        grad_limit=grad_limit, masked_gene_zero_grad=zero,
-                       finite=finite, kernel_ms=t_k, plain_ms=t_p,
-                       kernel_points_per_s=B * S * G / (t_k * 1e-3))
+                       finite=finite, device_us=dev_us, cuda_kernels_per_call=n_cuda,
+                       kernel_records_per_call=n_records,
+                       call_ms=t_k, plain_ms=t_p, bytes=w["bytes"], ops=w["ops"],
+                       bound_us=w["bound_us"], bound_by=w["bound_by"],
+                       share_of_bound=w["bound_us"] / dev_us,
+                       kernel_points_per_s=B * S * G / (dev_us * 1e-6), branch_shares=shares)
             if name == "nb_glm_stable_bwd":  # K4 and K5 together, one gradient step
                 fwd = calls["nb_glm_stable_fwd"][0]
                 row["k4_plus_k5_ms"] = _time_ms(lambda: (fwd(), kern_fn()), reps=20)
+                row["k4_plus_k5_device_us"] = _device_us(lambda: (fwd(), kern_fn()), reps)[0]
             print("phase kernel " + json.dumps(row), flush=True)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at B={B}, S={S}, "
@@ -256,6 +314,9 @@ def phase_kernel(counts_df, device):
         del data, alpha, log_phi, calls, calls64
         torch.cuda.empty_cache()
     return rows
+
+
+PATH_LAUNCHES: dict = {}  # path name -> kernel launch counts of its run
 
 
 def _run_path(name, fn, expect):
@@ -270,6 +331,7 @@ def _run_path(name, fn, expect):
     out = fn()
     torch.cuda.synchronize()
     counts = dict(nb_kernel.LAUNCHES)
+    PATH_LAUNCHES[name] = counts
     print(f"phase {name} launches " + json.dumps(counts), flush=True)
     missing = [k for k in expect if counts[k] <= 0]
     if missing:
@@ -493,9 +555,11 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for source in nb_kernel.SOURCES:
         info = _build.BUILD_LOG[source]
-        ptxas = " | ".join(l.strip() for l in info["log"].splitlines()
-                           if "registers" in l or "spill" in l)
-        print(f"phase build {source}: cached={info['cached']} {ptxas}", flush=True)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", info["log"])]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", info["log"]))
+        print(f"phase build {source}: cached={info['cached']} kernels={len(regs)} "
+              f"registers={min(regs, default=0)}-{max(regs, default=0)} "
+              f"spill_store_bytes={spills}", flush=True)
 
     counts_df = load_counts()
     kernel_rows = phase_kernel(counts_df, device)
@@ -505,18 +569,25 @@ def main() -> None:
 
     # each kernel's time at the shape its path gives it: K1 the ADVI step
     # (1, 21, 515), K2 the bench HMC (128, 21, 515), K3-K5 the scale HMC
-    # (8, 100, 50000)
+    # (8, 100, 50000). "ms" is the device time per call; "call_ms" what a
+    # caller waits for one call (CUDA events around it).
     shape_of = {"nb_glm_delta": (1, 515), "nb_glm_plain": (128, 515)}
     launches = dict(hmc_launches, nb_glm_delta=k1_launches)
     kernels = []
     for name, (source, replaces) in nb_kernel.KERNELS.items():
         B, G = shape_of.get(name, (8, 50000))
-        row = next(r for r in kernel_rows if r["kernel"] == name and r["B"] == B and r["G"] == G)
+        row = next(r for r in kernel_rows
+                   if r["kernel"] == name and r["B"] == B and r["G"] == G and r["grads"])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
             "launches": launches[name],
+            "launches_by_path": {path: c[name] for path, c in PATH_LAUNCHES.items() if c[name]},
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if r["kernel"] == name),
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["device_us"] * 1e-3, "device_us": row["device_us"],
+            "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_us"] * 1e-3, "bound_us": row["bound_us"],
+            "bound_by": row["bound_by"], "share_of_bound": row["share_of_bound"],
+            "library_ms": None,  # no single PyTorch call computes this function
         })
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,8 @@
 // Shared pieces of the NB2-log GLM likelihood kernels (nb_glm_delta.cu,
 // nb_glm_fused.cu, nb_glm_stable.cu): constants, float32-accurate log1p
-// forms, the lgamma/digamma series, and the fixed-order gene reduction.
+// forms, the lgamma/digamma series, the fixed-order gene reduction (a second
+// launch, K3-K5; or the last block of the kernel's own launch, K1/K2) and
+// cp.async copies.
 //
 // Every helper follows the torch function named beside it operation for
 // operation, so that a kernel built with --fmad=false rounds as its plain
@@ -130,6 +132,57 @@ sum_over_genes_kernel(const float* __restrict__ partial, int G, float* __restric
     __syncthreads();
   }
   if (threadIdx.x == 0) value[b] = (float)buf[0];
+}
+
+// 4-byte global -> shared copy that does not wait (cp.async, sm_80+); the
+// issuing thread waits with cp_async_wait_all (which commits its copies
+// first), then a barrier publishes them.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One-launch form of sum_over_genes_kernel. Every block has written its
+// double partial[b, blockIdx.x] for its rows b, each writer followed by a
+// __threadfence(); the last block to finish (an atomicAdd ticket) sums
+// partial[b, 0..n_tiles) into value[b] in double and a fixed order, so the
+// value is bitwise reproducible: up to 64 tiles one thread per b sums them
+// in index order (all b at once); beyond, one warp per b, lanes taking a
+// fixed strided share and a fixed shuffle tree combining them. It then sets
+// the ticket back to 0 for the next launch on the stream. Needs a block of
+// whole warps.
+__device__ __forceinline__ void last_block_sums_partials(const double* __restrict__ partial,
+                                                         int n_tiles, int B,
+                                                         float* __restrict__ value,
+                                                         unsigned* __restrict__ ticket) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (n_tiles <= 64) {  // few tiles: one thread per b, all b at once
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      double s = 0.0;
+#pragma unroll 8
+      for (int j = 0; j < n_tiles; ++j) s += __ldcg(&partial[(size_t)b * n_tiles + j]);
+      value[b] = (float)s;
+    }
+    if (threadIdx.x == 0) atomicExch(ticket, 0u);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  for (int b = warp; b < B; b += n_warps) {
+    double s = 0.0;
+    for (int j = lane; j < n_tiles; j += 32) s += __ldcg(&partial[(size_t)b * n_tiles + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) value[b] = (float)s;
+  }
+  if (threadIdx.x == 0) atomicExch(ticket, 0u);
 }
 
 }  // namespace nbk

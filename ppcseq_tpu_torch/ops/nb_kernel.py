@@ -23,6 +23,9 @@ differentiable in alpha and log_phi, are the JAX package's:
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the kernel's plain version. There is no fallback. `LAUNCHES` counts
 the launches of each kernel (CUDA only); `reset_launches()` zeroes them.
+`layout()` chooses K1/K2's launch layout per shape; `work()` counts a
+call's bytes and FP32 operations for its bound (chip_smoke.py), on the
+branch shares of `branch_shares()`.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ LAUNCHES = {name: 0 for name in KERNELS}  # kernel launches (CUDA tensors only)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C function -> argument types (pointers, then ints, then the stream)
 _SIGNATURES = {
-    "nb_glm_fast_launch": [_P] * 13 + [_I] * 6 + [_P],
+    "nb_glm_fast_launch": [_P] * 14 + [_I] * 11 + [_P],
     "nb_glm_fused_launch": [_P] * 12 + [_I] * 5 + [_P],
     "nb_glm_stable_fwd_launch": [_P] * 8 + [_I] * 4 + [_P],
     "nb_glm_stable_bwd_launch": [_P] * 8 + [_I] * 4 + [_P],
@@ -63,6 +66,128 @@ _FNS: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---- work of one call, for the kernels' bounds ------------------------------
+# The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
+# FP32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# FP32 operations per point and per (b, g), counted from csrc/ along the
+# branch each point takes. A stated approximation, for ranking only: expf,
+# logf and an IEEE divide (no fast math) cost about their instruction counts;
+# every other add, multiply, min/max and compare-select costs 1; fabs and
+# negation are free. log1p_wide and l1p_b are counted on their series
+# branch, expm1/e1 on its expf branch, the far branch as phi * softplus(d).
+EXP, LOG, DIV = 8, 20, 10
+_LOG1P = 2 * DIV + 15  # log1p01 and log1p_wide's series (nb_common.cuh)
+_SOFTPLUS = EXP + 2 + _LOG1P
+
+# Data-dependent branch shares (fractions of the B*S*G points, or of the
+# B*G genes for phi_lt6_gene) assumed when work() is not given the run's own
+# (branch_shares).
+DEFAULT_SHARES = {"y_le7": 0.5, "mean_y_le7": 3.0, "y_gt7_phi_ge8": 0.25, "mid": 1.0,
+                  "series": 0.5, "psi_small": 0.0, "phi_lt6_gene": 0.5}
+
+
+def _ops_per_point(name, C, grads, sh):
+    """FP32 operations of one kernel per point (b, s, g), per (b, g), and per
+    data point (s, g): the terms that do not depend on b, which K1/K2
+    compute once per (s, g) (lgamma(y+1) or log(y+1) and 1/(y+1), K1's
+    softplus(d0) and sigmoid(-d0))."""
+    small, big_phi = sh["y_le7"], sh["y_gt7_phi_ge8"]
+    small_phi = 1.0 - small - big_phi  # y > 7, phi < 8
+    series, mid = sh["series"], sh["mid"]
+    if name in ("nb_glm_delta", "nb_glm_plain"):  # nb_glm_delta.cu
+        delta = name == "nb_glm_delta"
+        pt = 1 + 2 * C + EXP + _LOG1P + 4 + (2 if delta else 1) + 5
+        datum = small * 12 + (1 - small) * (LOG + DIV + 2)
+        if delta:  # baseline rebuilt from d0; hybrid increments
+            datum += EXP + _LOG1P + DIV + 4
+            pt += 2 + mid * (EXP + DIV + 2 * _LOG1P + 11) + (1 - mid) * 6
+        else:
+            pt += 1
+        big_y = DIV + _LOG1P + 17
+        pt += small * 15 + big_phi * (big_y + _LOG1P + 7) + small_phi * (big_y + 4)
+        if grads:
+            pt += EXP + DIV + 14 + 2 * C + series * (EXP + 16) + (1 - series) * 3
+            pt += small * 14 + big_phi * 14 + small_phi * (DIV + 12)
+        return pt, EXP + 9 * LOG + 10 * DIV + 40 + C, datum
+    if name in ("nb_glm_fused", "nb_glm_stable_fwd"):  # nb2_part1 on the unhoisted math
+        part1 = (small * (7 + sh["mean_y_le7"] * (LOG + 3))
+                 + (1 - small) * (5 * DIV + 15 + _LOG1P)
+                 + big_phi * (LOG + 3 * DIV + _LOG1P + 12)
+                 + small_phi * (11 * LOG + DIV + 34))
+        if name == "nb_glm_stable_fwd":  # nb_glm_stable.cu
+            return 1 + 2 * C + 2 + 2 * _SOFTPLUS + 4 + part1 + 3, EXP + C + 1, 0
+        pt = (1 + 2 * C + 2 + EXP + DIV + _LOG1P + 5 + _SOFTPLUS + part1 + 6  # nb_glm_fused.cu
+              + mid * (2 * EXP + 2 * _LOG1P + 12) + (1 - mid) * (_SOFTPLUS + 6))
+        if grads:
+            pt += EXP + DIV + 2 + EXP + 1 + 3 + 1 + 2 * C + 2 + 2
+            pt += (small * (7 + sh["mean_y_le7"] * (DIV + 2)) + big_phi * (6 * DIV + _LOG1P + 13)
+                   + small_phi * (2 * LOG + 10 * DIV + 36))
+            pt += series * (2 * EXP + 16) + (1 - series) * (2 * EXP + DIV + _SOFTPLUS + 4)
+        return pt, EXP + C + 2, 0
+    if name == "nb_glm_stable_bwd":  # nb_glm_stable.cu
+        digamma = 1 + DIV + LOG + 11
+        pt = (1 + 2 * C + 2 + EXP + DIV + 2 + 2 + LOG + _SOFTPLUS + EXP + 4
+              + digamma + sh["psi_small"] * (6 * DIV + 13) + 9 + 2 * C + 1)
+        return pt, EXP + digamma + sh["phi_lt6_gene"] * (6 * DIV + 13) + C + 2, 0
+    raise ValueError(f"unknown kernel {name!r}")
+
+
+def work(name, B, S, C, G, want_grads=True, shares=None):
+    """Bytes and FP32 operations of one call of kernel `name` at (B, S, C, G),
+    and the least time the card could take for them.
+
+    Bytes: each input read once and each output written once (counts int32,
+    mask, d0 or exposure, X, alpha, alpha0, log_phi, sigma_raw0; value,
+    dalpha, dlog_phi), scratch not counted. Operations: _ops_per_point along
+    the branches in `shares` (DEFAULT_SHARES where not given). Returns a dict
+    with bytes, ops, bound_us and bound_by ("bytes" or "operations", i.e.
+    FP32)."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}")
+    sh = dict(DEFAULT_SHARES, **(shares or {}))
+    baseline = name in ("nb_glm_delta", "nb_glm_fused")
+    grads = want_grads and name != "nb_glm_stable_fwd"
+    value = name != "nb_glm_stable_bwd"
+    n = 4 * (2 * S * G + S * C + B * C * G + B * G)  # counts, mask, X, alpha, log_phi
+    n += 4 * (S * G + C * G + G) if baseline else 4 * S  # d0, alpha0, sigma_raw0 | exposure
+    n += 4 * (B * value + (B * C * G + B * G) * grads)  # value, dalpha, dlog_phi
+    per_point, per_gene, per_datum = _ops_per_point(name, C, grads, sh)
+    ops = B * S * G * per_point + B * G * per_gene + S * G * per_datum
+    t_bytes, t_ops = n / HBM_BYTES_PER_S * 1e6, ops / FP32_OPS_PER_S * 1e6
+    return {"bytes": n, "ops": ops, "bound_us": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def branch_shares(data, alpha, log_phi):
+    """The data-dependent branch shares of work() for these inputs (plain
+    torch, on the inputs' device): y <= 7; y > 7 with phi >= 8; the delta
+    form's mid range -2 < dlo < 8 (1.0 without a baseline); the gradient's
+    series branch d <= -1.386; digamma's recurrence y + phi < 6, and phi < 6
+    per (b, g); and the mean count of the y <= 7 points."""
+    y = data.counts.to(alpha.dtype)
+    lpc = torch.clamp(log_phi, max=nb_fast.LOG_PHI_CAP)
+    phi = torch.exp(lpc)[:, None, :]
+    d = nb_fast._eta_small(data.X, data.exposure_rate, alpha) - lpc[:, None, :]
+    small = y <= 7.0
+    out = {
+        "y_le7": float(small.to(alpha.dtype).mean()),
+        "mean_y_le7": float(y[small].mean()) if bool(small.any()) else 0.0,
+        "y_gt7_phi_ge8": float((~small & (phi >= 8.0)).to(alpha.dtype).mean()),
+        "series": float((d <= -1.386).to(alpha.dtype).mean()),
+        "psi_small": float((y + phi < 6.0).to(alpha.dtype).mean()),
+        "phi_lt6_gene": float((phi < 6.0).to(alpha.dtype).mean()),
+        "mid": 1.0,
+    }
+    if data.d0 is not None:
+        dlo = (nb_fast._eta_small(data.X, torch.zeros_like(data.X[:, 0]), alpha - data.alpha0)
+               - (lpc + data.sigma_raw0)[:, None, :])
+        out["mid"] = float(((dlo > -2.0) & (dlo < 8.0)).to(alpha.dtype).mean())
+    return out
 
 
 def build_all() -> None:
@@ -143,6 +268,72 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# ---- K1/K2 launch layout (csrc/nb_glm_delta.cu) ------------------------------
+SM_COUNT = 132  # the H100 SXM's SMs
+_SMEM_BUDGET = 100 * 1024  # per block, so that at least two blocks share an SM
+_MAX_THREADS = 256  # as MAX_THREADS in the source
+_ROW_THREADS = 128  # as ROW_THREADS in the source
+_TILES = (16, 8, 4)  # genes per block, widest first
+
+
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def layout(B, S, C, G, delta=True, want_grads=True):
+    """Launch layout of K1 (delta) / K2 at (B, S, C, G). The rules follow an
+    H100 sweep of every layout (bench_k12.py --sweep, PERF.md).
+
+    Many b at small S (B >= 32, S <= 32): the row layout (_row). Otherwise
+    the tiled one (_tiled) with BY the largest power of two up to min(B, 8)
+    and T the widest of 16, 8, 4 that gives six blocks per SM, the sample
+    lanes SY filling a block of 256 threads; where no T does (a small call),
+    as many sample lanes as S uses, up to 64, and the tile that fills the
+    block."""
+    if B >= 32 and S <= 32:
+        return _row(B, S, G)
+    BY = 1 << (min(B, 8).bit_length() - 1)
+    gy = -(-B // BY)
+    T = next((t for t in _TILES if -(-G // t) * gy >= 6 * SM_COUNT), None)
+    if T is None:
+        SY = max(8 // BY, min(_pow2_at_least(S), _MAX_THREADS // (4 * BY)))
+        T = max(4, _MAX_THREADS // (BY * SY))
+    else:
+        SY = max(8 // BY, min(_MAX_THREADS // (T * BY), _pow2_at_least(S)))
+    return _tiled(B, S, C, G, delta, want_grads, T, BY, SY)
+
+
+def _row(B, S, G):
+    """One thread per (b, g): blocks of T = 128 genes of one b, SY = 0, no
+    shared memory."""
+    return {"T": _ROW_THREADS, "BY": 1, "SY": 0, "SC": S, "grid": (-(-G // _ROW_THREADS), B),
+            "threads": _ROW_THREADS, "smem": 0, "n_chunks": 1}
+
+
+def _tiled(B, S, C, G, delta, want_grads, T, BY, SY):
+    """Blocks of T genes x BY b-lanes x SY sample lanes (warps of 4 genes x 8
+    lanes), each owning BY rows b; the samples staged in chunks of SC, all S
+    at once where the block's shared memory stays within _SMEM_BUDGET. smem
+    is the dynamic shared memory of the source's stage_words/fixed_words."""
+    Tp = T if (T // 4) % 2 else T + 4  # the source's padded(T)
+    nq = C + 2 if want_grads else 1
+    fixed = 4 * ((C * T + T if delta else 0) + 16 * BY * T + nq * BY * SY * T + BY * T)
+    per_row = 4 * (Tp * (7 if delta else 4) + C + (0 if delta else 1))
+    SC = min(S, max(1, (_SMEM_BUDGET - fixed) // per_row))
+    return {"T": T, "BY": BY, "SY": SY, "SC": SC, "grid": (-(-G // T), -(-B // BY)),
+            "threads": T * BY * SY, "smem": fixed + SC * per_row, "n_chunks": -(-S // SC)}
+
+
+_TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its K1/K2 launches share
+
+
+def _ticket(dev, stream):
+    key = (dev.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
 def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0,
                  want_grads, delta):
     if delta:
@@ -150,12 +341,21 @@ def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_ra
                                         d0=d0, alpha0=alpha0, sigma_raw0=sigma_raw0)
     else:
         dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    partial, value, dalpha, dlog_phi = _outputs(dev, B, C, G, want_grads)
+    lay = layout(B, S, C, G, delta, want_grads)
+    value = torch.empty((B,), dtype=torch.float32, device=dev)
+    dalpha = dlog_phi = None
+    if want_grads:
+        dalpha = torch.empty((B, C, G), dtype=torch.float32, device=dev)
+        dlog_phi = torch.empty((B, G), dtype=torch.float32, device=dev)
+    partial = torch.empty((B, lay["grid"][0]), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        ticket = _ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
     _run("nb_glm_fast_launch", "nb_glm_delta" if delta else "nb_glm_plain", dev, (
         X.data_ptr(), _ptr(exposure), counts.data_ptr(), mask.data_ptr(), _ptr(d0),
         alpha.data_ptr(), _ptr(alpha0), log_phi.data_ptr(), _ptr(sigma_raw0),
-        partial.data_ptr(), value.data_ptr(), _ptr(dalpha), _ptr(dlog_phi),
+        partial.data_ptr(), value.data_ptr(), _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(),
         B, S, C, G, int(bool(want_grads)), int(bool(delta)),
+        lay["T"], lay["BY"], lay["SY"], lay["SC"], lay["smem"],
     ))
     return (value, dalpha, dlog_phi) if want_grads else value
 

@@ -184,6 +184,124 @@ def test_entries_launch_their_kernels(cuda_case, entry):
     assert torch.equal(a.grad, dak) and torch.equal(p.grad, dlk)
 
 
+def _ragged_case(B, S, G, seed=3, dev="cuda"):
+    """Float32 model data on the card at any (S, G), two design columns,
+    gene 0 fully masked (when G > 1), ~3% excluded points, B parameter
+    rows."""
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(S), (np.arange(S) % 2).astype(float)])
+    alpha_true = np.stack([rng.normal(3.0, 1.5, G), rng.normal(0.0, 0.5, G)])
+    exposure = rng.normal(0.0, 0.3, S)
+    counts = rng.poisson(np.minimum(np.exp(exposure[:, None] + X @ alpha_true), 1e6))
+    exclude = rng.uniform(size=(S, G)) < 0.03
+    exclude[:, 0] = G > 1
+    data, dims = nb_model.prepare_data(counts, X, exposure, min(4, G), exclude_mask=exclude,
+                                       device=dev, dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    alpha = torch.as_tensor(alpha_true[None] + rng.normal(0, 0.1, (B, 2, G)),
+                            dtype=torch.float32, device=dev)
+    log_phi = torch.as_tensor(rng.normal(1.0, 1.5, (B, G)), dtype=torch.float32, device=dev)
+    return data, alpha, log_phi
+
+
+# (B, S, G): one row and many S-chunks with a ragged last tile; B above the
+# b-chunk (8) with S-chunks and G not a multiple of the tile; the bundled
+# width with B above the b-chunk; the row layout (B >= 32, S <= 32) with a
+# ragged last block; a single gene and a single sample
+_RAGGED = [(1, 601, 9001), (9, 601, 4201), (17, 21, 515), (33, 21, 300), (3, 1, 1), (2, 21, 1)]
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta", "nb_glm_plain"])
+@pytest.mark.parametrize("B,S,G", _RAGGED, ids=[f"B{b}-S{s}-G{g}" for b, s, g in _RAGGED])
+def test_k12_ragged_edges_match_plain(kernel, B, S, G):
+    """K1/K2 against their plain versions at value rtol 2e-5 and gradient
+    |d|/(1+|g|) < 1e-4 where the layout has several S-chunks, a partial
+    gene tile, a partial b-chunk, or is the row layout; the masked gene's
+    gradients are 0; the value-only launch gives the same value."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(B, S, G)
+    lay = nb_kernel.layout(B, S, 2, G, kernel == "nb_glm_delta")
+    if S == 601:
+        assert lay["n_chunks"] > 1 and G % lay["T"] != 0
+    assert (lay["SY"] == 0) == (B == 33)
+    kern = _launch(data, alpha, log_phi, kernel)
+    plain = _plain(data, alpha, log_phi, kernel)
+    np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=2e-5)
+    assert _scaled(kern[1], plain[1]) < 1e-4 and _scaled(kern[2], plain[2]) < 1e-4
+    if G > 1:
+        assert torch.all(kern[1][:, :, 0] == 0) and torch.all(kern[2][:, 0] == 0)
+    d = data
+    value_only = (nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0,
+                                         log_phi, d.sigma_raw0, want_grads=False)
+                  if kernel == "nb_glm_delta" else
+                  nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask, alpha,
+                                         log_phi, want_grads=False))
+    np.testing.assert_allclose(value_only.cpu().numpy(), plain[0].cpu().numpy(), rtol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta", "nb_glm_plain"])
+def test_k12_bitwise_repeatable(kernel):
+    """50 launches give the same value and gradients bit for bit (fixed
+    reduction orders, no atomics on the sums)."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(9, 601, 4201)
+    first = _launch(data, alpha, log_phi, kernel)
+    for _ in range(49):
+        again = _launch(data, alpha, log_phi, kernel)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k12_ticket_survives_many_launches():
+    """1,000 back-to-back launches on one stream, K1 in the row layout and
+    K2 in the tiled one alternating: every value right and the shared
+    ticket back at 0."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(40, 21, 515)
+    want = _launch(data, alpha, log_phi, "nb_glm_delta")[0]
+    want_plain = _launch(data, alpha[:1], log_phi[:1], "nb_glm_plain")[0]
+    got = []
+    for i in range(500):
+        got.append(_launch(data, alpha, log_phi, "nb_glm_delta")[0])
+        got.append(_launch(data, alpha[:1], log_phi[:1], "nb_glm_plain")[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(v, want) for v in got[0::2])
+    assert all(torch.equal(v, want_plain) for v in got[1::2])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(nb_kernel._TICKETS[(alpha.device.index, stream)].item()) == 0
+
+
+@pytest.mark.parametrize("B,kind", [(4, "tile"), (40, "row")])
+def test_k1_one_kernel_per_call_and_value_only_under_no_grad(B, kind):
+    """An autograd call of the K1/K2 entry runs one CUDA kernel, the GRADS
+    instantiation; a no_grad call runs one, the value-only instantiation
+    (csrc/nb_glm_delta.cu: nb_glm_{tile,row}_kernel<C, GRADS, DELTA>)."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    data, alpha, log_phi = _ragged_case(B, 21, 515)
+    a = alpha.clone().requires_grad_(True)
+    nb_kernel.nb_glm_likelihood_fast(data, a, log_phi)  # warm: build, ticket
+    torch.cuda.synchronize()
+
+    def instantiations(fn):
+        """The CUDA kernels that 20 calls of fn() ran (a record or two may
+        be dropped by the profiler, hence several calls)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        tag = f"nb_glm_{kind}_kernel<"
+        return {e.key.split(tag)[1].split(">")[0].replace(" ", "") if tag in e.key else e.key
+                for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+    assert instantiations(lambda: nb_kernel.nb_glm_likelihood_fast(data, a, log_phi)) == \
+        {"2,true,true"}
+    with torch.no_grad():
+        assert instantiations(lambda: nb_kernel.nb_glm_likelihood_fast(data, alpha, log_phi)) \
+            == {"2,false,true"}
+
+
 def test_kernel_refuses_wrong_dtype(cuda_case):
     data, alpha, log_phi = cuda_case
     with pytest.raises(TypeError, match="dtype"):
