@@ -20,7 +20,8 @@ so the exit code is non-zero):
              against float64 (_GRAD_FALLBACK).
              Exactly zero gradients for a masked gene. Per row:
              device_us (device time per call: torch.profiler over many
-             back-to-back calls), cuda_kernels_per_call, call_ms (median
+             back-to-back calls), cuda_kernels_per_call (1 for K1-K5),
+             layout (K1-K4: nb_kernel.layout's T, BY, SY, SC), call_ms (median
              CUDA events around one call: what a caller waits), plain_ms,
              and bytes, ops, bound_us, bound_by, share_of_bound
              (= bound_us / device_us) from nb_kernel.work() on this run's
@@ -31,9 +32,10 @@ so the exit code is non-zero):
              divergences <= 2%); (b) scripts/bench_scale.py's (50,000 x 100
              synthetic cohort with a baseline, 8 chains, warmup 100, L=32,
              125 draws per chain) once through "pallas" (K4+K5) and once
-             through "pallas_fused" (K3). Then the log joint at 8 draws of
-             each (b) run through K1, K2, K3 and K4, against each route's
-             plain version in float64.
+             through "pallas_fused" (K3), each row with the device's busy
+             share over a short profiled window of leapfrogs after it. Then
+             the log joint at 8 draws of each (b) run through K1, K2, K3 and
+             K4, against each route's plain version in float64.
   5. e2e     identify_outliers on the bundled data: the reference's 3-gene
              case on both VB CI paths and on the HMC branch (calls must be
              SLC16A12 0, CYP1A1 1, ART3 0), and the 15-gene README
@@ -291,7 +293,10 @@ def phase_kernel(counts_df, device):
             reps = 20 if G > 1000 else 200
             dev_us, n_cuda, n_records = _device_us(kern_fn, reps)
             w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
-            row = dict(kernel=name, B=B, S=S, G=G, grads=grads,
+            lay = (None if name == "nb_glm_stable_bwd" else
+                   {k: v for k, v in nb_kernel.layout(name, B, S, C, G, grads).items()
+                    if k in ("T", "BY", "SY", "SC")})
+            row = dict(kernel=name, B=B, S=S, G=G, grads=grads, layout=lay,
                        value_rel_err=val_rel if has_value else None,
                        grad_err=grad_err, max_abs_err=mabs,
                        kernel_vs_f64=k64, plain_vs_f64=p64,
@@ -375,6 +380,38 @@ def _hmc_run(data, dims, likelihood, *, chains, warmup, draws, L, seed, device):
                mean_accept=float(res.accept_prob.mean()), step_size=res.step_size,
                draws_finite=bool(torch.isfinite(res.draws).all()))
     return res, row
+
+
+def _busy_window(data, dims, likelihood, device):
+    """The device's busy share over a short HMC run through flat_logp(dims,
+    likelihood) (8 chains, 4 + 4 iterations of 8 leapfrogs, after one
+    unprofiled run): the CUDA kernels' device time (torch.profiler, CUDA
+    activity only) over the window's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppcseq_tpu_torch.infer.hmc import run_hmc
+    from ppcseq_tpu_torch.model import nb_model
+
+    logp = nb_model.flat_logp(dims, likelihood)
+    gen = torch.Generator(device=device).manual_seed(2)
+    init = nb_model.smart_init(data, dims)
+
+    def window():
+        return run_hmc(logp, dims.dim, gen, data=data, num_chains=8, num_warmup=4, num_draws=4,
+                       num_leapfrog=8, init_theta=init, device=device)
+
+    window()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = window()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") * 1e-6
+    return dict(window_leapfrogs=res.num_leapfrog, window_wall_s=wall, window_device_s=busy,
+                device_busy_share=busy / wall)
 
 
 def _strip_baseline(data):
@@ -473,7 +510,8 @@ def phase_hmc(counts_df, device):
             lambda: _hmc_run(data, dims, likelihood, chains=8, warmup=100, draws=125,
                              L=32, seed=1, device=device), kernels)
         launches.update({k: counts[k] for k in kernels})
-        row.update(config="bench_scale.py", launches=counts)
+        row.update(config="bench_scale.py", launches=counts,
+                   **_busy_window(data, dims, likelihood, device))
         print("phase hmc " + json.dumps(row), flush=True)
         if not row["draws_finite"]:
             raise AssertionError(f"hmc scale {likelihood}: non-finite draws")

@@ -20,18 +20,23 @@
 // large counts. A baseline attached to the data is ignored: these are the
 // stable form's kernels.
 //
-// Layout as in nb_glm_delta.cu: one thread per (b, g) looping over S
-// (coalesced [S, G] reads, per-gene terms in registers, no atomics), and
-// the fixed-order gene reduction for the value. The Pallas grid tiled G
-// in blocks of 2048 and carried the value across grid steps; here a gene
-// count that is not a multiple of the block is handled by the bounds check.
+// K4 is one kernel per call in nb_tile.cuh's layouts (chosen by
+// ops/nb_kernel.py:layout; tiled at every shape). What bounds it on the H100
+// is the FP32 instructions of each point (~160 by ops/nb_kernel.py:work's
+// count at (8, 100, 50000), against 8 bytes of [S, G] input). nb2_part1's
+// functions of phi alone (the 8 logs of log(phi + k), lgamma_pos_small(phi),
+// 0.5 log(phi), 1/(12 phi), 1/(360 phi^3): nb_common.cuh Part1Row) are
+// built once per (b, g); 1/(y+1) and 1/(y+1)^3 once per staged point; the
+// softplus pair shares one exp(-|d|) and one log1p. Each is computed by the
+// operations the point's own code would use, so every point's terms keep
+// their bits.
 //
-// Bound. K4: per point ~2 exp + ~3 log (part1 and the softplus pair), 8
-// bytes of [S, G] input (counts, mask). K5: per point 3 exp + 2 log +
-// one digamma (1 log, and 6 reciprocals below x = 6). Special-function
-// units at large S*G*B, launch latency at the bundled shape.
+// K5 keeps one thread per (b, g) looping over S (coalesced [S, G] reads,
+// per-gene terms in registers, no atomics); per point 3 exp + 2 log + one
+// digamma (1 log, and 6 reciprocals below x = 6): special-function units
+// at large S*G*B, launch latency at the bundled shape.
 
-#include "nb_common.cuh"
+#include "nb_tile.cuh"
 
 namespace {
 
@@ -63,33 +68,50 @@ __device__ __forceinline__ float eta_at(const float* __restrict__ X,
   return acc + exposure[s];
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-nb_glm_stable_fwd_kernel(const float* __restrict__ X, const float* __restrict__ exposure,
-                         const int32_t* __restrict__ counts, const float* __restrict__ mask,
-                         const float* __restrict__ alpha, const float* __restrict__ log_phi,
-                         int S, int G, float* __restrict__ partial) {
-  const int g = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  if (g >= G) return;
-  const float lpc = fminf(log_phi[(size_t)b * G + g], LOG_PHI_CAP);
-  const float phi = expf(lpc);
-  float a[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) a[c] = alpha[((size_t)b * C + c) * G + g];
+// K4 as a form of nb_tile.cuh: value only (GRADS is always false)
+struct StableFwd {
+  static constexpr bool BASE = false;
+  static constexpr int NH = 2;   // 1/(y+1), 1/(y+1)^3
+  static constexpr int TAB = 8;  // logf(phi + k), k = 0..7
 
-  float acc = 0.0f;
-  for (int s = 0; s < S; ++s) {
-    const size_t i = (size_t)s * G + g;
-    const float yf = (float)counts[i];
-    const float d = eta_at<C>(X, exposure, a, s) - lpc;
-    // nb2_log_lpmf_stable: part1 + (-phi softplus(d) - y softplus(-d))
-    const float part23 = -phi * softplus(d) - yf * softplus(-d);
-    const float pts = nb2_part1(yf, phi) + part23;
-    acc += pts * mask[i];
+  template <int C>
+  struct Row {
+    float lpc;
+    Part1Row p1;
+    float da[C];  // alpha[b, :, g]
+  };
+
+  template <int C, bool GRADS, class LogK, class FracK>
+  static __device__ __forceinline__ void build_row(Row<C>& r, float lp_raw, float, LogK log_k,
+                                                   FracK) {
+    r.lpc = fminf(lp_raw, LOG_PHI_CAP);
+    build_part1(r.p1, expf(r.lpc), log_k);
   }
-  partial[(size_t)b * G + g] = acc;
-}
+
+  static __device__ __forceinline__ void hoist(float yf, float, float (&h)[NH]) {
+    hoist_y(yf, h[0], h[1]);
+  }
+
+  template <int C, bool GRADS, bool HOISTED>
+  static __device__ __forceinline__ void point(const Row<C>& r, float m, float yf,
+                                               const float* x, float ex, float,
+                                               const float (&h)[NH], float& acc_val,
+                                               float (&)[C], float&) {
+    const float phi = r.p1.phi;
+    float eta = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) eta += x[c] * r.da[c];
+    const float d = (eta + ex) - r.lpc;
+    // nb2_log_lpmf_stable: part1 + (-phi softplus(d) - y softplus(-d)), the
+    // softplus pair sharing one exp and one log1p
+    const float em = expf(-fabsf(d));
+    const float l1pem = log1p_wide(em);
+    const float part23 = -phi * (fmaxf(d, 0.0f) + l1pem) - yf * (fmaxf(-d, 0.0f) + l1pem);
+    Part1Shared sh;
+    const float pts = part1_point<HOISTED>(r.p1, yf, h[0], h[1], sh) + part23;
+    acc_val += pts * m;
+  }
+};
 
 template <int C>
 __global__ void __launch_bounds__(THREADS)
@@ -142,28 +164,31 @@ nb_glm_stable_bwd_kernel(const float* __restrict__ X, const float* __restrict__ 
 
 extern "C" int nb_glm_stable_max_c() { return MAX_C; }
 
-// K4 and the gene reduction on `stream`: value[B] from partial[B, G]
-// scratch. Returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a C outside 1..MAX_C.
+// K4 on `stream`, one kernel in all, with the layout of
+// ops/nb_kernel.py:layout("nb_glm_stable_fwd", ...): value[B] (partial and
+// ticket as in nb_glm_fused_launch). Returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a C outside 1..MAX_C or a layout
+// the kernel cannot run.
 extern "C" int nb_glm_stable_fwd_launch(const void* X, const void* exposure, const void* counts,
                                         const void* mask, const void* alpha, const void* log_phi,
-                                        void* partial, void* value, int B, int S, int C, int G,
+                                        void* partial, void* value, void* ticket, int B, int S,
+                                        int C, int G, int T, int BY, int SY, int SC, int smem,
                                         void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B <= 0 || G <= 0) return (int)cudaGetLastError();
-  dim3 grid((G + THREADS - 1) / THREADS, B);
-  auto part = static_cast<float*>(partial);
-#define NB_CASE(n)                                                                           \
-  nb_glm_stable_fwd_kernel<n><<<grid, THREADS, 0, st>>>(                                    \
-      static_cast<const float*>(X), static_cast<const float*>(exposure),                    \
-      static_cast<const int32_t*>(counts), static_cast<const float*>(mask),                 \
-      static_cast<const float*>(alpha), static_cast<const float*>(log_phi), S, G, part);
+  if (S <= 0 || T <= 0 || SY < 0) return (int)cudaErrorInvalidValue;
+  const Inputs in{static_cast<const float*>(X),       static_cast<const float*>(exposure),
+                  static_cast<const int32_t*>(counts), static_cast<const float*>(mask),
+                  nullptr,                             static_cast<const float*>(alpha),
+                  nullptr,                             static_cast<const float*>(log_phi),
+                  nullptr};
+  const Outputs out{static_cast<double*>(partial), static_cast<float*>(value), nullptr, nullptr,
+                    static_cast<unsigned*>(ticket)};
+#define NB_CASE(n) \
+  return launch_layout<StableFwd, n, false>(in, out, B, S, G, T, BY, SY, SC, smem, st);
   NBK_DISPATCH_C(C, NB_CASE)
 #undef NB_CASE
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_over_genes_kernel<<<B, REDUCE_THREADS, 0, st>>>(part, G, static_cast<float*>(value));
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;  // not reached: every case returns
 }
 
 // K5 on `stream`: dalpha[B, C, G] and dlog_phi[B, G] (not yet scaled by the

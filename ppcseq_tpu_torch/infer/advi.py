@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.utils.device import resolve_device
+
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -98,7 +100,7 @@ def fit_advi(
     window: int = 8,
     init_mean=None,
     init_log_sd: float | None = None,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> ADVIResult:
     """Fit meanfield ADVI over a [dim] vector state.
@@ -106,8 +108,10 @@ def fit_advi(
     Noise comes from `generator` (which must live on `device`). ELBO is
     estimated with `elbo_samples` draws every `eval_every` steps; stop when
     the mean or the median of the last `window` relative changes drops
-    below tol_rel_obj (Stan ADVI's rule).
+    below tol_rel_obj (Stan ADVI's rule). `device` defaults to the card and
+    must exist (utils/device.resolve_device).
     """
+    device = resolve_device(device)
     if init_log_sd is None:
         init_log_sd = -1.0 if init_mean is not None else 0.0
     m0 = (

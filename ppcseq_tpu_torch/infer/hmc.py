@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.utils.device import resolve_device
+
 MAX_DELTA_ENERGY = 1000.0
 DA_GAMMA, DA_T0, DA_KAPPA = 0.05, 10.0, 0.75
 
@@ -92,7 +94,7 @@ def run_hmc(
     step_size0: float = 0.05,
     mesh=None,
     adapt_trajectory: bool = False,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> HMCResult:
     """Run jittered-trajectory HMC on a flat [D] unconstrained state.
@@ -101,6 +103,7 @@ def run_hmc(
     accept draws; a CPU generator seeded from it draws the trajectory
     lengths. `inv_mass` is the diagonal inverse mass (e.g. exp(2*log_sd)
     from ADVI). Returns the post-warmup draws stacked [chains, num_draws, D].
+    `device` defaults to the card and must exist (utils/device.resolve_device).
     """
     if adapt_trajectory:
         raise NotImplementedError(
@@ -108,6 +111,7 @@ def run_hmc(
         )
     if mesh is not None:
         raise NotImplementedError("mesh is not ported yet (ROADMAP.md, queue 1, item 12)")
+    device = resolve_device(device)
     D = int(dim)
     L = int(num_leapfrog)
     L_min = max(1, int(np.ceil(jitter_low * L)))

@@ -40,6 +40,7 @@ from ppcseq_tpu_torch.ops.nb import (
     skew_normal_lpdf,
 )
 from ppcseq_tpu_torch.utils.constants import LAMBDA_MU_MU
+from ppcseq_tpu_torch.utils.device import resolve_device
 
 _SCALARS = ("lambda_mu", "lambda_sigma", "lambda_skew", "sigma_slope",
             "sigma_intercept", "sigma_sigma")
@@ -183,10 +184,12 @@ def prepare_data(
     n_check: int,
     exclude_mask: np.ndarray | None = None,
     pad_genes_to: int | None = None,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> tuple[ModelData, ModelDims]:
-    """Pad + upload model arrays; returns (data, dims)."""
+    """Pad + upload model arrays to `device` (the card by default; it must
+    exist: utils/device.resolve_device); returns (data, dims)."""
+    device = resolve_device(device)
     S, G_real = counts.shape
     G = int(pad_genes_to) if pad_genes_to else G_real
     if G < G_real:

@@ -23,9 +23,9 @@ differentiable in alpha and log_phi, are the JAX package's:
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the kernel's plain version. There is no fallback. `LAUNCHES` counts
 the launches of each kernel (CUDA only); `reset_launches()` zeroes them.
-`layout()` chooses K1/K2's launch layout per shape; `work()` counts a
-call's bytes and FP32 operations for its bound (chip_smoke.py), on the
-branch shares of `branch_shares()`.
+`layout()` chooses the launch layout of K1-K4 per kernel and shape;
+`work()` counts a call's bytes and FP32 operations for its bound
+(chip_smoke.py), on the branch shares of `branch_shares()`.
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C function -> argument types (pointers, then ints, then the stream)
 _SIGNATURES = {
     "nb_glm_fast_launch": [_P] * 14 + [_I] * 11 + [_P],
-    "nb_glm_fused_launch": [_P] * 12 + [_I] * 5 + [_P],
-    "nb_glm_stable_fwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "nb_glm_fused_launch": [_P] * 13 + [_I] * 10 + [_P],
+    "nb_glm_stable_fwd_launch": [_P] * 9 + [_I] * 9 + [_P],
     "nb_glm_stable_bwd_launch": [_P] * 8 + [_I] * 4 + [_P],
 }
 _MAX_C_FN = {"nb_glm_delta.cu": "nb_glm_fast_max_c", "nb_glm_fused.cu": "nb_glm_fused_max_c",
@@ -93,9 +93,10 @@ DEFAULT_SHARES = {"y_le7": 0.5, "mean_y_le7": 3.0, "y_gt7_phi_ge8": 0.25, "mid":
 
 def _ops_per_point(name, C, grads, sh):
     """FP32 operations of one kernel per point (b, s, g), per (b, g), and per
-    data point (s, g): the terms that do not depend on b, which K1/K2
-    compute once per (s, g) (lgamma(y+1) or log(y+1) and 1/(y+1), K1's
-    softplus(d0) and sigmoid(-d0))."""
+    data point (s, g): the terms that do not depend on b (K1/K2:
+    lgamma(y+1) or log(y+1) and 1/(y+1), K1's softplus(d0) and sigmoid(-d0);
+    K3/K4: 1/(y+1) and 1/(y+1)^3, K3's softplus(d0) and sigmoid(-d0)). The
+    function needs these once per (s, g), whichever layout runs it."""
     small, big_phi = sh["y_le7"], sh["y_gt7_phi_ge8"]
     small_phi = 1.0 - small - big_phi  # y > 7, phi < 8
     series, mid = sh["series"], sh["mid"]
@@ -114,21 +115,25 @@ def _ops_per_point(name, C, grads, sh):
             pt += EXP + DIV + 14 + 2 * C + series * (EXP + 16) + (1 - series) * 3
             pt += small * 14 + big_phi * 14 + small_phi * (DIV + 12)
         return pt, EXP + 9 * LOG + 10 * DIV + 40 + C, datum
-    if name in ("nb_glm_fused", "nb_glm_stable_fwd"):  # nb2_part1 on the unhoisted math
-        part1 = (small * (7 + sh["mean_y_le7"] * (LOG + 3))
-                 + (1 - small) * (5 * DIV + 15 + _LOG1P)
-                 + big_phi * (LOG + 3 * DIV + _LOG1P + 12)
-                 + small_phi * (11 * LOG + DIV + 34))
-        if name == "nb_glm_stable_fwd":  # nb_glm_stable.cu
-            return 1 + 2 * C + 2 + 2 * _SOFTPLUS + 4 + part1 + 3, EXP + C + 1, 0
-        pt = (1 + 2 * C + 2 + EXP + DIV + _LOG1P + 5 + _SOFTPLUS + part1 + 6  # nb_glm_fused.cu
-              + mid * (2 * EXP + 2 * _LOG1P + 12) + (1 - mid) * (_SOFTPLUS + 6))
+    if name in ("nb_glm_fused", "nb_glm_stable_fwd"):  # nb_tile.cuh forms
+        # nb2_part1's rest per point (nb_common.cuh part1_point), its phi
+        # terms per (b, g) (build_part1), 1/(y+1) and 1/(y+1)^3 per (s, g)
+        part1 = (1 + small * 7 + (1 - small) * (13 + 3 * DIV + _LOG1P)
+                 + big_phi * (DIV + _LOG1P + 8) + small_phi * (LOG + 4))
+        gene = EXP + 10 * LOG + 4 * DIV + 58
+        datum = 1 + (1 - small) * (3 + 2 * DIV)
+        if name == "nb_glm_stable_fwd":  # nb_glm_stable.cu StableFwd
+            return 2 * C + 12 + EXP + _LOG1P + part1, gene, datum
+        datum += EXP + _LOG1P + DIV + 4  # softplus(d0), sigmoid(-d0)
+        gene += C + 2
+        pt = (2 * C + 16 + EXP + _LOG1P + part1  # nb_glm_fused.cu Fused
+              + mid * (2 * EXP + 2 * _LOG1P + 9) + (1 - mid) * 3)
         if grads:
-            pt += EXP + DIV + 2 + EXP + 1 + 3 + 1 + 2 * C + 2 + 2
-            pt += (small * (7 + sh["mean_y_le7"] * (DIV + 2)) + big_phi * (6 * DIV + _LOG1P + 13)
-                   + small_phi * (2 * LOG + 10 * DIV + 36))
-            pt += series * (2 * EXP + 16) + (1 - series) * (2 * EXP + DIV + _SOFTPLUS + 4)
-        return pt, EXP + C + 2, 0
+            gene += 10 * DIV + 18
+            pt += EXP + DIV + 15 + 2 * C
+            pt += small * 7 + big_phi * (3 * DIV + 11) + small_phi * (DIV + 11)
+            pt += series * (EXP + 16) + (1 - series) * (DIV + 3)
+        return pt, gene, datum
     if name == "nb_glm_stable_bwd":  # nb_glm_stable.cu
         digamma = 1 + DIV + LOG + 11
         pt = (1 + 2 * C + 2 + EXP + DIV + 2 + 2 + LOG + _SOFTPLUS + EXP + 4
@@ -144,7 +149,9 @@ def work(name, B, S, C, G, want_grads=True, shares=None):
     Bytes: each input read once and each output written once (counts int32,
     mask, d0 or exposure, X, alpha, alpha0, log_phi, sigma_raw0; value,
     dalpha, dlog_phi), scratch not counted. Operations: _ops_per_point along
-    the branches in `shares` (DEFAULT_SHARES where not given). Returns a dict
+    the branches in `shares` (DEFAULT_SHARES where not given), each term as
+    often as the function needs it (per point, per (b, g) or per (s, g)),
+    not as often as a launch layout happens to compute it. Returns a dict
     with bytes, ops, bound_us and bound_by ("bytes" or "operations", i.e.
     FP32)."""
     if name not in KERNELS:
@@ -254,53 +261,55 @@ def _run(fn_name, kernel, dev, args):
     LAUNCHES[kernel] += 1
 
 
-def _outputs(dev, B, C, G, want_grads):
-    f32 = torch.float32
-    partial = torch.empty((B, G), dtype=f32, device=dev)
-    value = torch.empty((B,), dtype=f32, device=dev)
-    if not want_grads:
-        return partial, value, None, None
-    return (partial, value, torch.empty((B, C, G), dtype=f32, device=dev),
-            torch.empty((B, G), dtype=f32, device=dev))
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# ---- K1/K2 launch layout (csrc/nb_glm_delta.cu) ------------------------------
+# ---- launch layouts of K1-K4 (csrc/nb_tile.cuh) --------------------------------
 SM_COUNT = 132  # the H100 SXM's SMs
 _SMEM_BUDGET = 100 * 1024  # per block, so that at least two blocks share an SM
-_MAX_THREADS = 256  # as MAX_THREADS in the source
-_ROW_THREADS = 128  # as ROW_THREADS in the source
+_MAX_THREADS = 256  # as MAX_THREADS in csrc/nb_common.cuh
+_ROW_THREADS = 128  # as ROW_THREADS in csrc/nb_common.cuh
 _TILES = (16, 8, 4)  # genes per block, widest first
+
+# kernel -> the (BASE, NH, TAB) of its form (csrc/nb_glm_*.cu), which size
+# its shared memory by csrc/nb_tile.cuh's stage_words/fixed_words: base =
+# reads d0, alpha0 and sigma_raw0 (else exposure), nh = staged planes of
+# per-(s, g) terms, tab = per-(b, g) table slots
+_CARVING = {"nb_glm_delta": (1, 4, 16), "nb_glm_plain": (0, 2, 16),
+            "nb_glm_fused": (1, 4, 16), "nb_glm_stable_fwd": (0, 2, 8)}
 
 
 def _pow2_at_least(n):
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def layout(B, S, C, G, delta=True, want_grads=True):
-    """Launch layout of K1 (delta) / K2 at (B, S, C, G). The rules follow an
-    H100 sweep of every layout (bench_k12.py --sweep, PERF.md).
+def layout(name, B, S, C, G, want_grads=True):
+    """Launch layout of kernel `name` (K1-K4) at (B, S, C, G). The rules
+    follow H100 sweeps of every layout (bench_kernels.py --sweep, PERF.md).
 
-    Many b at small S (B >= 32, S <= 32): the row layout (_row). Otherwise
-    the tiled one (_tiled) with BY the largest power of two up to min(B, 8)
-    and T the widest of 16, 8, 4 that gives six blocks per SM, the sample
-    lanes SY filling a block of 256 threads; where no T does (a small call),
-    as many sample lanes as S uses, up to 64, and the tile that fills the
-    block."""
-    if B >= 32 and S <= 32:
+    K1-K3 at many b and small S (B >= 32, S <= 32): the row layout (_row).
+    Otherwise the tiled one (_tiled) with BY the largest power of two up to
+    min(B, 8) and T the widest of 16, 8, 4 that gives six blocks per SM
+    (K4: four; its points are the cheapest, so the tile's staging and
+    hoisting pay even at (128, 21, 515)), the sample lanes SY filling a
+    block of 256 threads; where no T does (a small call), as many sample
+    lanes as S uses, up to 64, and the tile that fills the block."""
+    if name not in _CARVING:
+        raise ValueError(f"no launch layout for kernel {name!r}")
+    stable = name == "nb_glm_stable_fwd"
+    if B >= 32 and S <= 32 and not stable:
         return _row(B, S, G)
     BY = 1 << (min(B, 8).bit_length() - 1)
     gy = -(-B // BY)
-    T = next((t for t in _TILES if -(-G // t) * gy >= 6 * SM_COUNT), None)
+    per_sm = 4 if stable else 6
+    T = next((t for t in _TILES if -(-G // t) * gy >= per_sm * SM_COUNT), None)
     if T is None:
         SY = max(8 // BY, min(_pow2_at_least(S), _MAX_THREADS // (4 * BY)))
         T = max(4, _MAX_THREADS // (BY * SY))
     else:
         SY = max(8 // BY, min(_MAX_THREADS // (T * BY), _pow2_at_least(S)))
-    return _tiled(B, S, C, G, delta, want_grads, T, BY, SY)
+    return _tiled(name, B, S, C, G, want_grads, T, BY, SY)
 
 
 def _row(B, S, G):
@@ -310,21 +319,22 @@ def _row(B, S, G):
             "threads": _ROW_THREADS, "smem": 0, "n_chunks": 1}
 
 
-def _tiled(B, S, C, G, delta, want_grads, T, BY, SY):
+def _tiled(name, B, S, C, G, want_grads, T, BY, SY):
     """Blocks of T genes x BY b-lanes x SY sample lanes (warps of 4 genes x 8
     lanes), each owning BY rows b; the samples staged in chunks of SC, all S
     at once where the block's shared memory stays within _SMEM_BUDGET. smem
     is the dynamic shared memory of the source's stage_words/fixed_words."""
+    base, nh, tab = _CARVING[name]
     Tp = T if (T // 4) % 2 else T + 4  # the source's padded(T)
-    nq = C + 2 if want_grads else 1
-    fixed = 4 * ((C * T + T if delta else 0) + 16 * BY * T + nq * BY * SY * T + BY * T)
-    per_row = 4 * (Tp * (7 if delta else 4) + C + (0 if delta else 1))
+    nq = C + 2 if want_grads and name != "nb_glm_stable_fwd" else 1
+    fixed = 4 * ((C * T + T if base else 0) + tab * BY * T + nq * BY * SY * T + BY * T)
+    per_row = 4 * (Tp * (2 + base + nh) + C + (0 if base else 1))
     SC = min(S, max(1, (_SMEM_BUDGET - fixed) // per_row))
     return {"T": T, "BY": BY, "SY": SY, "SC": SC, "grid": (-(-G // T), -(-B // BY)),
             "threads": T * BY * SY, "smem": fixed + SC * per_row, "n_chunks": -(-S // SC)}
 
 
-_TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its K1/K2 launches share
+_TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its K1-K4 launches share
 
 
 def _ticket(dev, stream):
@@ -334,6 +344,26 @@ def _ticket(dev, stream):
     return _TICKETS[key]
 
 
+def _one_launch_outputs(name, dev, B, S, C, G, want_grads):
+    """(layout, value, dalpha, dlog_phi, partial, ticket) of one K1-K4 call:
+    the outputs, the [B, n_tiles] double scratch and the stream's ticket."""
+    lay = layout(name, B, S, C, G, want_grads)
+    f32 = torch.float32
+    value = torch.empty((B,), dtype=f32, device=dev)
+    dalpha = dlog_phi = None
+    if want_grads:
+        dalpha = torch.empty((B, C, G), dtype=f32, device=dev)
+        dlog_phi = torch.empty((B, G), dtype=f32, device=dev)
+    partial = torch.empty((B, lay["grid"][0]), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        ticket = _ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
+    return lay, value, dalpha, dlog_phi, partial, ticket
+
+
+def _layout_args(lay):
+    return lay["T"], lay["BY"], lay["SY"], lay["SC"], lay["smem"]
+
+
 def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0,
                  want_grads, delta):
     if delta:
@@ -341,21 +371,14 @@ def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_ra
                                         d0=d0, alpha0=alpha0, sigma_raw0=sigma_raw0)
     else:
         dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    lay = layout(B, S, C, G, delta, want_grads)
-    value = torch.empty((B,), dtype=torch.float32, device=dev)
-    dalpha = dlog_phi = None
-    if want_grads:
-        dalpha = torch.empty((B, C, G), dtype=torch.float32, device=dev)
-        dlog_phi = torch.empty((B, G), dtype=torch.float32, device=dev)
-    partial = torch.empty((B, lay["grid"][0]), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        ticket = _ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
-    _run("nb_glm_fast_launch", "nb_glm_delta" if delta else "nb_glm_plain", dev, (
+    name = "nb_glm_delta" if delta else "nb_glm_plain"
+    lay, value, dalpha, dlog_phi, partial, ticket = _one_launch_outputs(
+        name, dev, B, S, C, G, want_grads)
+    _run("nb_glm_fast_launch", name, dev, (
         X.data_ptr(), _ptr(exposure), counts.data_ptr(), mask.data_ptr(), _ptr(d0),
         alpha.data_ptr(), _ptr(alpha0), log_phi.data_ptr(), _ptr(sigma_raw0),
         partial.data_ptr(), value.data_ptr(), _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(),
-        B, S, C, G, int(bool(want_grads)), int(bool(delta)),
-        lay["T"], lay["BY"], lay["SY"], lay["SC"], lay["smem"],
+        B, S, C, G, int(bool(want_grads)), int(bool(delta)), *_layout_args(lay),
     ))
     return (value, dalpha, dlog_phi) if want_grads else value
 
@@ -381,11 +404,13 @@ def launch_fused(X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, want_g
     """K3: as launch_delta (same inputs and outputs), on the unhoisted math."""
     dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi,
                                     d0=d0, alpha0=alpha0, sigma_raw0=sigma_raw0)
-    partial, value, dalpha, dlog_phi = _outputs(dev, B, C, G, want_grads)
+    lay, value, dalpha, dlog_phi, partial, ticket = _one_launch_outputs(
+        "nb_glm_fused", dev, B, S, C, G, want_grads)
     _run("nb_glm_fused_launch", "nb_glm_fused", dev, (
         X.data_ptr(), counts.data_ptr(), mask.data_ptr(), d0.data_ptr(), alpha.data_ptr(),
         alpha0.data_ptr(), log_phi.data_ptr(), sigma_raw0.data_ptr(), partial.data_ptr(),
-        value.data_ptr(), _ptr(dalpha), _ptr(dlog_phi), B, S, C, G, int(bool(want_grads)),
+        value.data_ptr(), _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(), B, S, C, G,
+        int(bool(want_grads)), *_layout_args(lay),
     ))
     return (value, dalpha, dlog_phi) if want_grads else value
 
@@ -393,10 +418,12 @@ def launch_fused(X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, want_g
 def launch_stable_fwd(X, exposure, counts, mask, alpha, log_phi):
     """K4: value[B] of the stable form (inputs as launch_plain)."""
     dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    partial, value, _, _ = _outputs(dev, B, C, G, False)
+    lay, value, _, _, partial, ticket = _one_launch_outputs(
+        "nb_glm_stable_fwd", dev, B, S, C, G, False)
     _run("nb_glm_stable_fwd_launch", "nb_glm_stable_fwd", dev, (
         X.data_ptr(), exposure.data_ptr(), counts.data_ptr(), mask.data_ptr(),
-        alpha.data_ptr(), log_phi.data_ptr(), partial.data_ptr(), value.data_ptr(), B, S, C, G,
+        alpha.data_ptr(), log_phi.data_ptr(), partial.data_ptr(), value.data_ptr(),
+        ticket.data_ptr(), B, S, C, G, *_layout_args(lay),
     ))
     return value
 
@@ -404,7 +431,8 @@ def launch_stable_fwd(X, exposure, counts, mask, alpha, log_phi):
 def launch_stable_bwd(X, exposure, counts, mask, alpha, log_phi):
     """K5: (dalpha[B,C,G], dlog_phi[B,G]) of the stable form."""
     dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    _, _, dalpha, dlog_phi = _outputs(dev, B, C, G, True)
+    dalpha = torch.empty((B, C, G), dtype=torch.float32, device=dev)
+    dlog_phi = torch.empty((B, G), dtype=torch.float32, device=dev)
     _run("nb_glm_stable_bwd_launch", "nb_glm_stable_bwd", dev, (
         X.data_ptr(), exposure.data_ptr(), counts.data_ptr(), mask.data_ptr(),
         alpha.data_ptr(), log_phi.data_ptr(), dalpha.data_ptr(), dlog_phi.data_ptr(), B, S, C, G,

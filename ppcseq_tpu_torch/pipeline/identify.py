@@ -98,14 +98,16 @@ def do_inference(
     pass_fit: bool = False,
     mcmc_sampler: str = "hmc",
     hmc_adapt_trajectory: bool = False,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> InferenceResult:
     """One fit + CI extraction + outlier annotation (reference
     R/utilities.R:1321-1547): VB, or with approximate_posterior_inference
-    False, jittered HMC from an ADVI warm start."""
+    False, jittered HMC from an ADVI warm start. `device` defaults to the
+    card and must exist (utils/device.resolve_device)."""
     if not approximate_posterior_inference:
         _check_sampler(mcmc_sampler, hmc_adapt_trajectory)
+    device = resolve_device(device)
     breadcrumb("executing do_inference")
     md = ingest.build_model_data(
         my_df, sample, transcript, abundance, do_check,

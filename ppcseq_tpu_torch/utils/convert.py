@@ -5,7 +5,9 @@ ppcseq_tpu and hand them to the port through these functions, so both
 packages compute on identical inputs. Nothing here imports JAX: every
 field is read with `np.asarray`, which works on JAX arrays and NumPy
 arrays alike. θ is a plain vector in both packages, in the same
-`_offsets` layout.
+`_offsets` layout. Unlike the port's entry points, these helpers default
+to the CPU (and float64): they serve the CPU parity tests, where the JAX
+package runs.
 """
 
 from __future__ import annotations

@@ -106,7 +106,8 @@ def test_advi_recovers_gaussian():
     mu = np.array([1.5, -2.0, 0.5])
     sd = np.array([0.3, 2.0, 1.0])
     gen = torch.Generator().manual_seed(0)
-    res = fit_advi(_gaussian_logp(mu, sd), 3, gen, learning_rate=0.05, dtype=torch.float64)
+    res = fit_advi(_gaussian_logp(mu, sd), 3, gen, learning_rate=0.05, device="cpu",
+                   dtype=torch.float64)
     np.testing.assert_allclose(res.mean.numpy(), mu, atol=0.15)
     np.testing.assert_allclose(np.exp(res.log_sd.numpy()), sd, rtol=0.3)
     draws = advi_sample(res, torch.Generator().manual_seed(1), 4000).numpy()
@@ -118,7 +119,8 @@ def test_vb_iterative_retries_then_raises(capsys):
         return torch.nan * torch.sum(theta, dim=-1)
 
     with pytest.raises(RuntimeError, match="failed"):
-        vb_iterative(bad_logp, 2, torch.Generator().manual_seed(0), max_attempts=2, max_iter=200)
+        vb_iterative(bad_logp, 2, torch.Generator().manual_seed(0), max_attempts=2, max_iter=200,
+                     device="cpu")
     assert capsys.readouterr().out.count("failed\n") == 2
 
 
@@ -127,6 +129,6 @@ def test_fit_advi_stops_on_the_relative_elbo_rule():
     i.e. after 3 ELBO evaluations (300 steps) on an easy target."""
     gen = torch.Generator().manual_seed(3)
     res = fit_advi(_gaussian_logp([0.0, 1.0], [1.0, 1.0]), 2, gen, init_mean=[0.0, 1.0],
-                   init_log_sd=0.0, tol_rel_obj=0.5, dtype=torch.float64)
+                   init_log_sd=0.0, tol_rel_obj=0.5, device="cpu", dtype=torch.float64)
     assert res.converged and res.iterations == 300 and len(res.elbo_trace) == 3
     assert math.isfinite(res.elbo)

@@ -98,7 +98,7 @@ def test_hmc_correlated_gaussian_moments():
 
     gen = torch.Generator().manual_seed(0)
     res = run_hmc(logp, D, gen, num_chains=64, num_warmup=200, num_draws=300, num_leapfrog=16,
-                  inv_mass=np.diag(cov).copy(), dtype=torch.float64)
+                  inv_mass=np.diag(cov).copy(), device="cpu", dtype=torch.float64)
     assert res.draws.shape == (64, 300, D)
     assert res.divergences.sum() == 0
     assert 0.6 < res.accept_prob.mean() < 0.99
@@ -116,17 +116,19 @@ def test_hmc_nb_model_agrees_with_advi():
     counts = rng.poisson(np.exp(rng.normal(4.0, 1.0, size=(1, G))), size=(S, G))
     X = np.column_stack([np.ones(S), (np.arange(S) >= S // 2).astype(float)])
     exposure = rng.normal(0.0, 0.1, size=S)
-    data, dims = nb_model.prepare_data(counts, X, exposure, n_check, dtype=torch.float32)
+    data, dims = nb_model.prepare_data(counts, X, exposure, n_check, device="cpu",
+                                       dtype=torch.float32)
     assert data.d0 is None
     logp = nb_model.flat_logp(dims)
     init = nb_model.smart_init(data, dims)
 
     warm = fit_advi(lambda th: logp(th, data), dims.dim, torch.Generator().manual_seed(2),
-                    init_mean=init, tol_rel_obj=0.01, learning_rate=0.2, eval_every=50)
+                    init_mean=init, tol_rel_obj=0.01, learning_rate=0.2, eval_every=50,
+                    device="cpu")
     res = run_hmc(logp, dims.dim, torch.Generator().manual_seed(3), data=data,
                   num_chains=32, num_warmup=60, num_draws=60, num_leapfrog=16,
                   init_theta=warm.mean, inv_mass=torch.exp(2.0 * warm.log_sd),
-                  target_accept=0.95)
+                  target_accept=0.95, device="cpu")
     assert res.divergences.sum() <= 0.01 * res.draws.shape[0] * res.draws.shape[1]
     assert res.num_leapfrog >= 32 * 120 * math.ceil(0.4 * 16)
     hmc_mean = res.draws.reshape(-1, dims.dim).mean(dim=0).numpy()

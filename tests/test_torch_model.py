@@ -59,7 +59,7 @@ def test_smart_init_and_baseline_equal_jax():
     jdata, jdims = jnb.prepare_data(counts, X, exposure, 3, exclude_mask=exclude,
                                     dtype=jnp.float64)
     tdata, tdims = nb_model.prepare_data(counts, X, exposure, 3, exclude_mask=exclude,
-                                         dtype=torch.float64)
+                                         device="cpu", dtype=torch.float64)
     np.testing.assert_array_equal(nb_model.smart_init(tdata, tdims), jnb.smart_init(jdata, jdims))
     jb = jnb.with_baseline(jdata, jdims)
     tb = nb_model.with_baseline(tdata, tdims)
@@ -73,7 +73,7 @@ def test_prepare_data_pads_like_jax():
     jdata, jdims = jnb.prepare_data(counts, X, exposure, 2, exclude_mask=exclude,
                                     pad_genes_to=9, dtype=jnp.float64)
     tdata, tdims = nb_model.prepare_data(counts, X, exposure, 2, exclude_mask=exclude,
-                                         pad_genes_to=9, dtype=torch.float64)
+                                         pad_genes_to=9, device="cpu", dtype=torch.float64)
     assert (tdims.G, tdims.G_unpadded, tdims.dim) == (jdims.G, jdims.G_unpadded, jdims.dim)
     for k in ("counts", "X", "exposure_rate", "like_mask", "gene_mask"):
         np.testing.assert_array_equal(getattr(tdata, k).numpy(), np.asarray(getattr(jdata, k)))
@@ -86,7 +86,7 @@ def _toy(S=4, G=6, C=2, n_check=2, seed=0):
         [np.ones(S)] + [rng.integers(0, 2, size=S).astype(float) for _ in range(C - 1)]
     )
     exposure = rng.normal(0, 0.2, size=S)
-    return nb_model.prepare_data(counts, X, exposure, n_check, dtype=torch.float64)
+    return nb_model.prepare_data(counts, X, exposure, n_check, device="cpu", dtype=torch.float64)
 
 
 def test_unpack_roundtrip_transforms():
@@ -128,10 +128,10 @@ def test_log_joint_exclusion_mask_subtracts_lpmf():
     exposure = rng.normal(0, 0.2, size=S)
     excl = np.zeros((S, G), dtype=bool)
     excl[1, 0] = True
-    data0, dims = nb_model.prepare_data(counts, X, exposure, 2, dtype=torch.float64)
+    data0, dims = nb_model.prepare_data(counts, X, exposure, 2, device="cpu", dtype=torch.float64)
     data0 = nb_model.with_baseline(data0, dims)
     data1, _ = nb_model.prepare_data(counts, X, exposure, 2, exclude_mask=excl,
-                                     dtype=torch.float64)
+                                     device="cpu", dtype=torch.float64)
     data1 = nb_model.ModelData(**{**data0.__dict__, "like_mask": data1.like_mask})
     theta = torch.as_tensor(nb_model.smart_init(data0, dims)[None]
                             + rng.normal(size=(1, dims.dim)) * 0.1)
