@@ -1,5 +1,5 @@
-"""Device time of the one-launch likelihood kernels K1-K4 at the main path's
-shapes, for one checkout of the PyTorch + CUDA port, on one NVIDIA GPU.
+"""Device time of the likelihood kernels K1-K5 at the main path's shapes, for
+one checkout of the PyTorch + CUDA port, on one NVIDIA GPU.
 
     python3 bench_kernels.py [--root DIR] [--tag NAME] [--sweep KERNEL] [--sass] [--k3-grads]
 
@@ -12,17 +12,22 @@ kernel's (this checkout's chip_smoke.py, whichever package is timed): the
 ADVI step (1, 21, 515), the value-only ELBO (100, 21, 515, K1/K2 only) and
 the bench HMC (128, 21, 515) on the bundled cohort, the 50k pipeline
 cohort's ADVI step (1, 100, 600, K1/K2 only) and the scale HMC (8, 100,
-50000). To compare two checkouts on one card, run both in one call, in
-turns: parent, change, change, parent.
+50000). K5's row is one gradient call of the stable form: value and
+gradients in one launch, or, in a checkout whose launch_stable_bwd
+returns the gradients alone, K4's value and K5's gradients, two launches.
+To compare two checkouts on one card, run both in one call, in turns:
+parent, change, change, parent.
 
---sweep KERNEL times that kernel (nb_glm_delta, nb_glm_fused or
-nb_glm_stable_fwd) instead under every launch layout (T genes, BY b-lanes,
-SY sample lanes per block; ops/nb_kernel.py's _row and _tiled) it takes at
-each shape, one JSON line each, to choose nb_kernel.layout()'s rules.
-K4's row layout is built only for this sweep: layout() never picks it (its
-sweep result, slower than tiled at every shape, is recorded in PERF.md).
+--sweep KERNEL times that kernel (nb_glm_delta, nb_glm_fused,
+nb_glm_stable_fwd or nb_glm_stable_bwd) instead under every launch layout
+(T genes, BY b-lanes, SY sample lanes per block; ops/nb_kernel.py's _row
+and _tiled) it takes at each shape, one JSON line each, to choose
+nb_kernel.layout()'s rules.
+K4's and K5's row layout is built only for this sweep: layout() never
+picks it (their sweep results, slower than tiled at every shape, are in
+PERF.md).
 
---sass counts, in the built K3/K4 libraries (C = 2), the special-function
+--sass counts, in the built K3-K5 libraries (C = 2), the special-function
 instructions (MUFU.EX2, MUFU.LG2, MUFU.RCP, ...) of each kernel with
 `cuobjdump -sass`: in all, and in the innermost loop that holds the most of
 them (the sample loop, i.e. per point), one JSON line per kernel.
@@ -48,16 +53,17 @@ from pathlib import Path
 import chip_smoke  # this script's directory; imports the package only when called
 
 HERE = Path(__file__).resolve().parent
-K1_TO_K4 = ("nb_glm_delta", "nb_glm_plain", "nb_glm_fused", "nb_glm_stable_fwd")
+K1_TO_K5 = ("nb_glm_delta", "nb_glm_plain", "nb_glm_fused", "nb_glm_stable_fwd",
+            "nb_glm_stable_bwd")
+SWEEPS = ("nb_glm_delta", "nb_glm_fused", "nb_glm_stable_fwd", "nb_glm_stable_bwd")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="checkout whose ppcseq_tpu_torch to time")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--sweep", choices=("nb_glm_delta", "nb_glm_fused", "nb_glm_stable_fwd"),
-                    help="time this kernel under every launch layout")
-    ap.add_argument("--sass", action="store_true", help="count K3/K4's MUFU instructions")
+    ap.add_argument("--sweep", choices=SWEEPS, help="time this kernel under every launch layout")
+    ap.add_argument("--sass", action="store_true", help="count K3-K5's MUFU instructions")
     ap.add_argument("--k3-grads", action="store_true",
                     help="K3's gradient errors at the card tests' ragged shapes")
     args = ap.parse_args()
@@ -83,15 +89,17 @@ def main() -> None:
     bundled = (md.counts, md.X, md.exposure_rate, md.n_check)
     c600 = synthetic_cohort(600, 100, n_check=100, seed=0)[:3] + (100,)
     c50k = synthetic_cohort(50000, 100, n_check=100, seed=0)[:3] + (100,)
-    k12 = K1_TO_K4[:2]
-    for B, cohort, grads, names in [(1, bundled, True, K1_TO_K4), (100, bundled, False, k12),
-                                    (128, bundled, True, K1_TO_K4), (1, c600, True, k12),
-                                    (8, c50k, True, K1_TO_K4)]:
+    k12 = K1_TO_K5[:2]
+    for B, cohort, grads, names in [(1, bundled, True, K1_TO_K5), (100, bundled, False, k12),
+                                    (128, bundled, True, K1_TO_K5), (1, c600, True, k12),
+                                    (8, c50k, True, K1_TO_K5)]:
         if args.sweep and args.sweep not in names:
             continue
         d, alpha, log_phi, _ = chip_smoke._kernel_case(*cohort, B, 7, dev)
         S, G = d.counts.shape
         calls = chip_smoke._calls(d, alpha, log_phi, grads)[0]
+        calls["nb_glm_stable_bwd"] = (_stable_gradient_call(nb_kernel, d, alpha, log_phi),
+                                      calls["nb_glm_stable_bwd"][1])
         if args.sweep:
             _sweep(nb_kernel, args.sweep, calls[args.sweep][0], B, S, G, grads, args.tag)
         else:
@@ -106,6 +114,17 @@ def main() -> None:
                       flush=True)
         del d, alpha, log_phi, calls
         torch.cuda.empty_cache()
+
+
+def _stable_gradient_call(nb_kernel, d, alpha, log_phi):
+    """One gradient call of the stable form, (value, dalpha, dlog_phi): K5,
+    or K4 then K5 where launch_stable_bwd gives the gradients alone."""
+    args = (d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi)
+
+    def call():
+        out = nb_kernel.launch_stable_bwd(*args)
+        return out if len(out) == 3 else (nb_kernel.launch_stable_fwd(*args), *out)
+    return call
 
 
 def _sweep(nb_kernel, name, kern, B, S, G, grads, tag):
@@ -217,9 +236,9 @@ def _sass(tag):
             continue
         fns = _functions(_build._lib_path(source))
         names = _demangle(list(fns))
-        for mangled, insns in fns.items():  # K3/K4 at C = 2, by the mangled name
-            k34 = re.search(r"Fused|StableFwd|nb_glm_fused_kernel|nb_glm_stable_fwd_kernel", mangled)
-            if not k34 or not re.search(r"[IE]Li2E", mangled):
+        for mangled, insns in fns.items():  # K3-K5 at C = 2, by the mangled name
+            k345 = re.search(r"Fused|Stable|nb_glm_\w+_kernel", mangled)
+            if not k345 or not re.search(r"[IE]Li2E", mangled):
                 continue
             name = names[mangled]
             total, point, point_len, n_loops = _mufu_counts(insns)

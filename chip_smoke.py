@@ -13,15 +13,16 @@ so the exit code is non-zero):
              controls) and (8, 100, 50000) on the synthetic scale cohort;
              K1 and K2 also value-only at (100, 21, 515) (the ELBO) and at
              (1, 100, 600) (the 50k pipeline cohort's ADVI step).
-             Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4; for K3's and
-             K5's gradients, where the plain version itself is further than
+             Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4; for K3's
+             gradients, where the plain version itself is further than
              1e-4 from its float64 evaluation, the tolerance of
              tests/test_nb_kernel.py and a bound on the kernel's own error
-             against float64 (_GRAD_FALLBACK).
+             against float64 (_GRAD_FALLBACK). K5 is one gradient call of
+             the stable form: its value and gradients in one launch.
              Exactly zero gradients for a masked gene. Per row:
              device_us (device time per call: torch.profiler over many
              back-to-back calls), cuda_kernels_per_call (1 for K1-K5),
-             layout (K1-K4: nb_kernel.layout's T, BY, SY, SC), call_ms (median
+             layout (nb_kernel.layout's T, BY, SY, SC), call_ms (median
              CUDA events around one call: what a caller waits), plain_ms,
              and bytes, ops, bound_us, bound_by, share_of_bound
              (= bound_us / device_us) from nb_kernel.work() on this run's
@@ -31,7 +32,8 @@ so the exit code is non-zero):
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
              divergences <= 2%); (b) scripts/bench_scale.py's (50,000 x 100
              synthetic cohort with a baseline, 8 chains, warmup 100, L=32,
-             125 draws per chain) once through "pallas" (K4+K5) and once
+             125 draws per chain) once through "pallas" (K5 at every
+             gradient, K4 in the ADVI warm start's no_grad ELBO) and once
              through "pallas_fused" (K3), each row with the device's busy
              share over a short profiled window of leapfrogs after it. Then
              the log joint at 8 draws of each (b) run through K1, K2, K3 and
@@ -132,16 +134,15 @@ def _within(got, want, rtol, atol):
                for a, b in zip(got[1:], want[1:]))
 
 
-# K3 and K5 compute the gradient in another grouping than their plain
-# version. Where the plain float32 gradient is itself 1e-4 or more from
-# float64 (so the strict limit is below what float32 resolves), their
-# gradients are held instead at tests/test_nb_kernel.py's tolerances for
-# them, (rtol, atol(want)), AND their own |d|/(1+|g|) from float64 may be at
-# most the stated multiple of the plain version's (measured on the H100: K3
-# 1.2x, K5 3.2x). Values have no such fallback: every kernel meets rtol 2e-5.
+# K3 computes the gradient at another d than its plain version (d0 + dlo).
+# Where the plain float32 gradient is itself 1e-4 or more from float64 (so
+# the strict limit is below what float32 resolves), its gradients are held
+# instead at tests/test_nb_kernel.py's tolerances for it, (rtol,
+# atol(want)), AND its own |d|/(1+|g|) from float64 may be at most the
+# stated multiple of the plain version's (measured on the H100: 1.2x).
+# Values have no such fallback: every kernel meets rtol 2e-5.
 _GRAD_FALLBACK = {
     "nb_glm_fused": (2e-3, lambda w: 2e-3 * (1.0 + np.abs(w).max()), 2.0),
-    "nb_glm_stable_bwd": (3e-3, lambda w: 3e-2, 4.0),
 }
 
 
@@ -221,10 +222,10 @@ def _calls(data, alpha, log_phi, grads=True):
                                                      d.like_mask, a, p),),
                 lambda: (nb_model.stable_likelihood(d, a, p),)),
             "nb_glm_stable_bwd": (
-                lambda: (None, *nb_kernel.launch_stable_bwd(d.X, d.exposure_rate, d.counts,
-                                                            d.like_mask, a, p)),
-                lambda: (None, *nb_grad.likelihood_grads(d.X, d.exposure_rate, d.counts,
-                                                         d.like_mask, a, p))),
+                lambda: nb_kernel.launch_stable_bwd(d.X, d.exposure_rate, d.counts, d.like_mask,
+                                                    a, p),
+                lambda: (nb_model.stable_likelihood(d, a, p), *nb_grad.likelihood_grads(
+                    d.X, d.exposure_rate, d.counts, d.like_mask, a, p))),
         }
 
     d64 = dataclasses.replace(data, **{
@@ -232,10 +233,6 @@ def _calls(data, alpha, log_phi, grads=True):
         if f.name != "host" and getattr(data, f.name) is not None
         and getattr(data, f.name).is_floating_point()})
     return bind(data, alpha, log_phi), bind(d64, alpha.double(), log_phi.double())
-
-
-def _drop_none(t):
-    return tuple(x for x in t if x is not None)
 
 
 def phase_kernel(counts_df, device):
@@ -267,16 +264,12 @@ def phase_kernel(counts_df, device):
         for name, (kern_fn, plain_fn) in calls.items():
             if names is not None and name not in names:
                 continue
-            kern, plain = _drop_none(kern_fn()), _drop_none(plain_fn())
-            plain64 = _drop_none(calls64[name][1]())
+            kern, plain, plain64 = kern_fn(), plain_fn(), calls64[name][1]()
             torch.cuda.synchronize()
-            has_value = name != "nb_glm_stable_bwd"
-            if not has_value:  # compare gradients only: a dummy equal value
-                kern, plain, plain64 = ((torch.ones(1),) + t for t in (kern, plain, plain64))
             val_rel, grad_err, mabs = _errors(kern, plain)
             k64 = _errors(kern, plain64)[:2]
             p64 = _errors(plain, plain64)[:2]
-            value_ok = not has_value or val_rel < 2e-5
+            value_ok = val_rel < 2e-5
             grad_limit = "strict"
             if grad_err >= 1e-4:
                 grad_limit = None
@@ -293,11 +286,10 @@ def phase_kernel(counts_df, device):
             reps = 20 if G > 1000 else 200
             dev_us, n_cuda, n_records = _device_us(kern_fn, reps)
             w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
-            lay = (None if name == "nb_glm_stable_bwd" else
-                   {k: v for k, v in nb_kernel.layout(name, B, S, C, G, grads).items()
-                    if k in ("T", "BY", "SY", "SC")})
+            lay = {k: v for k, v in nb_kernel.layout(name, B, S, C, G, grads).items()
+                   if k in ("T", "BY", "SY", "SC")}
             row = dict(kernel=name, B=B, S=S, G=G, grads=grads, layout=lay,
-                       value_rel_err=val_rel if has_value else None,
+                       value_rel_err=val_rel,
                        grad_err=grad_err, max_abs_err=mabs,
                        kernel_vs_f64=k64, plain_vs_f64=p64,
                        grad_limit=grad_limit, masked_gene_zero_grad=zero,
@@ -307,10 +299,6 @@ def phase_kernel(counts_df, device):
                        bound_us=w["bound_us"], bound_by=w["bound_by"],
                        share_of_bound=w["bound_us"] / dev_us,
                        kernel_points_per_s=B * S * G / (dev_us * 1e-6), branch_shares=shares)
-            if name == "nb_glm_stable_bwd":  # K4 and K5 together, one gradient step
-                fwd = calls["nb_glm_stable_fwd"][0]
-                row["k4_plus_k5_ms"] = _time_ms(lambda: (fwd(), kern_fn()), reps=20)
-                row["k4_plus_k5_device_us"] = _device_us(lambda: (fwd(), kern_fn()), reps)[0]
             print("phase kernel " + json.dumps(row), flush=True)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at B={B}, S={S}, "

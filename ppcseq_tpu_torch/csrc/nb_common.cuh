@@ -1,8 +1,9 @@
 // Shared pieces of the NB2-log GLM likelihood kernels (nb_glm_delta.cu,
 // nb_glm_fused.cu, nb_glm_stable.cu): constants, float32-accurate log1p
 // forms, the lgamma(y+phi) - lgamma(y+1) - lgamma(phi) term split into its
-// per-(b, g) table and its per-point rest, the one-launch fixed-order gene
-// reduction (the last block of the kernel's own launch) and cp.async copies.
+// per-(b, g) table and its per-point rest, K3's and K5's analytic gradient
+// split the same way, the one-launch fixed-order gene reduction (the last
+// block of the kernel's own launch) and cp.async copies.
 //
 // Every helper follows the torch function named beside it operation for
 // operation, so that a kernel built with --fmad=false rounds as its plain
@@ -20,7 +21,6 @@ constexpr float LOG_PHI_CAP = 80.0f;
 constexpr float HALF_LOG_2PI = 0.9189385332046727f;
 constexpr float LOG8 = 2.0794415416798357f;
 constexpr int MAX_C = 8;
-constexpr int THREADS = 128;      // K5: one thread per (b, g)
 constexpr int MAX_THREADS = 256;  // tiled layouts: T genes x BY b-lanes x SY sample lanes
 constexpr int ROW_THREADS = 128;  // row layouts: one thread per (b, g)
 
@@ -70,11 +70,6 @@ __device__ __forceinline__ float expm1_precise(float x) {
   return expf(x) - 1.0f;
 }
 
-// log(1 + exp(x)) (nb._softplus)
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1p_wide(expf(-fabsf(x)));
-}
-
 // sum_{k < y} table[k] for y in 0..7 (the largest applicable k wins)
 __device__ __forceinline__ float select_by_y(float yf, const float (&t)[7]) {
   float out = 0.0f;
@@ -88,8 +83,9 @@ __device__ __forceinline__ float select_by_y(float yf, const float (&t)[7]) {
 // built once per (b, g), and the rest, per point. Part1Row holds phi's
 // terms: the y <= 7 prefix sums of log(phi + k) - log(k + 1),
 // lgamma_pos_small(phi) (shift-by-8 Stirling, nb._lgamma_pos_small), the
-// phi >= 8 branch's 0.5 log(phi), 1/(12 phi), 1/(360 phi^3), and (for K3's
-// gradient) digamma(phi + 8) by the asymptotic series (nb_grad._psi_asym).
+// phi >= 8 branch's 0.5 log(phi), 1/(12 phi), 1/(360 phi^3), and (for the
+// gradient, grad_point) digamma(phi + 8) by the asymptotic series
+// (nb_grad._psi_asym).
 struct Part1Row {
   float phi, d_b, lgam_small, half_log_phi, inv12, inv360, psi8;
   float cum_a[7];
@@ -139,8 +135,8 @@ __device__ __forceinline__ void hoist_y(float yf, float& inv_y1, float& inv_y1_3
   inv_y1_3 = 1.0f / (a2s * a2s * a2s);
 }
 
-// What part1_point computed that K3's gradient needs again at y > 7:
-// log(y + phi) (phi < 8), 1/(y + phi), log1p(y / phi) (phi >= 8)
+// What part1_point computed that the gradient (grad_point) needs again at
+// y > 7: log(y + phi) (phi < 8), 1/(y + phi), log1p(y / phi) (phi >= 8)
 struct Part1Shared {
   float log_a1 = 0.0f, inv_a1 = 0.0f, l1p_yphi = 0.0f;
 };
@@ -167,6 +163,86 @@ __device__ __forceinline__ float part1_point(const Part1Row& p, float yf, float 
   }
   sh.log_a1 = logf(a1s);
   return pair + d * sh.log_a1 - d - p.lgam_small;
+}
+
+// The analytic gradient of the NB2-log lpmf (nb_grad.nb2_grads, its
+// float32-moderate O(y) grouping), shared by K3 and K5. GradRow holds its
+// terms of phi alone, built once per (b, g): the y <= 7 prefix sums of
+// phi / (phi + k) and their total over k = 0..7, 1/phi, 1/phi^3, and
+// whether log_phi is below the cap (dlog_phi is 0 at and above it).
+struct GradRow {
+  float shift_f, inv_phi, inv_phi3;
+  bool below_cap;
+  float cum_f[7];
+};
+
+// frac_k(k) = phi / (phi + k) for k = 0..7, wherever the caller computed it
+template <class FracK>
+__device__ __forceinline__ void build_grad_row(GradRow& r, float lp_raw, float phi,
+                                               FracK frac_k) {
+  r.below_cap = lp_raw < LOG_PHI_CAP;
+  float part_a = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    part_a = part_a + frac_k(k);
+    r.cum_f[k] = part_a;
+  }
+  r.shift_f = part_a + frac_k(7);
+  r.inv_phi = 1.0f / phi;
+  r.inv_phi3 = 1.0f / (phi * phi * phi);
+}
+
+// One point's gradient terms at d, from the point's em = exp(-|d|), its
+// l1pem = log1p(em) and part1_point's shared values sh (lpc = min(log_phi,
+// 80), phi = e^lpc = p.phi): adds x[c] * m * deta to acc_da[c] and
+// m * dlogphi to acc_dlp, with
+//   deta    = y sigmoid(-d) - phi sigmoid(d)
+//   dlogphi = phi (digamma(y + phi) - digamma(phi))
+//             - phi (softplus(d) - sigmoid(d)) - y sigmoid(-d)
+template <int C>
+__device__ __forceinline__ void grad_point(const GradRow& r, const Part1Row& p,
+                                           const Part1Shared& sh, float lpc, float m, float yf,
+                                           const float* x, float d, float em, float l1pem,
+                                           float (&acc_da)[C], float& acc_dlp) {
+  const float phi = p.phi;
+  const float softplus_neg_d = fmaxf(-d, 0.0f) + l1pem;
+  const float softplus_d = fmaxf(d, 0.0f) + l1pem;
+  const float q = d > 0.0f ? em / (1.0f + em) : 1.0f / (1.0f + em);  // sigmoid(-d)
+  const float phi_p = expf(lpc - softplus_neg_d);                  // phi * sigmoid(d)
+  const float deta = m * (yf * q - phi_p);
+  // phi * (digamma(y + phi) - digamma(phi)), float32-moderate
+  // (nb_grad.phi_digamma_diff)
+  float phi_dd;
+  if (yf <= 7.0f) {
+    phi_dd = select_by_y(yf, r.cum_f);
+  } else if (phi >= 8.0f) {
+    const float a = yf + phi;
+    phi_dd = phi * sh.l1p_yphi + 0.5f * yf / a + (1.0f / 12.0f) * (r.inv_phi - phi / (a * a)) -
+             (1.0f / 120.0f) * (r.inv_phi3 - phi / ((a * a) * (a * a)));
+  } else {  // digamma(y + phi) by the asymptotic series (nb_grad._psi_asym)
+    const float inv2 = sh.inv_a1 * sh.inv_a1;
+    const float psi_yphi = sh.log_a1 - 0.5f * sh.inv_a1 -
+                           inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 / 252.0f));
+    phi_dd = phi * (psi_yphi - p.psi8) + r.shift_f;
+  }
+  // phi * (softplus(d) - sigmoid(d)) >= 0
+  // (nb_grad.phi_softplus_minus_sigmoid); exp(min(d, 0)) = em there
+  float phi_sms;
+  if (d <= -1.386f) {
+    const float dn = fminf(d, 0.0f);
+    const float u = em;
+    const float series =
+        0.5f - u * (2.0f / 3.0f - u * (0.75f - u * (0.8f - u * (5.0f / 6.0f -
+        u * (6.0f / 7.0f - u * 0.875f)))));
+    phi_sms = expf(lpc + 2.0f * dn) * series;
+  } else {
+    const float sig = d > 0.0f ? 1.0f / (1.0f + em) : em / (1.0f + em);
+    phi_sms = phi * (softplus_d - sig);
+  }
+  const float dlogphi = r.below_cap ? phi_dd - phi_sms - yf * q : 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc_da[c] += x[c] * deta;
+  acc_dlp += m * dlogphi;
 }
 
 // 4-byte global -> shared copy that does not wait (cp.async, sm_80+); the

@@ -52,10 +52,10 @@ struct Fused {
 
   template <int C>
   struct Row {
-    float lpc, delta_log_phi, shift_f, inv_phi, inv_phi3;
-    bool below_cap;
+    float lpc, delta_log_phi;
     Part1Row p1;
-    float cum_f[7], da[C];
+    GradRow gr;
+    float da[C];
   };
 
   // log_k(k) = logf(phi + k), frac_k(k) = phi / (phi + k), k = 0..7
@@ -65,19 +65,8 @@ struct Fused {
     r.lpc = fminf(lp_raw, LOG_PHI_CAP);
     const float phi = expf(r.lpc);
     r.delta_log_phi = r.lpc + sr0;  // log_phi - log_phi0
-    r.below_cap = lp_raw < LOG_PHI_CAP;
     build_part1(r.p1, phi, log_k);
-    if (GRADS) {  // phi * (digamma(y + phi) - digamma(phi))'s terms of phi
-      float part_a = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        part_a = part_a + frac_k(k);
-        r.cum_f[k] = part_a;
-      }
-      r.shift_f = part_a + frac_k(7);
-      r.inv_phi = 1.0f / phi;
-      r.inv_phi3 = 1.0f / (phi * phi * phi);
-    }
+    if (GRADS) build_grad_row(r.gr, lp_raw, phi, frac_k);
   }
 
   // softplus(d0) and sigmoid(-d0): the baseline constants rebuilt from d0
@@ -135,45 +124,7 @@ struct Fused {
     const float pts = part1 - phi_sp - yf * inc_neg - yf * spn0;
     acc_val += m * pts;
 
-    if (GRADS) {
-      const float q = d > 0.0f ? em / (1.0f + em) : 1.0f / (1.0f + em);  // sigmoid(-d)
-      const float phi_p = expf(lpc - softplus_neg_d);                  // phi * sigmoid(d)
-      const float deta = m * (yf * q - phi_p);
-      // phi * (digamma(y + phi) - digamma(phi)), float32-moderate
-      // (nb_grad.phi_digamma_diff)
-      float phi_dd;
-      if (yf <= 7.0f) {
-        phi_dd = select_by_y(yf, r.cum_f);
-      } else if (phi >= 8.0f) {
-        const float a = yf + phi;
-        phi_dd = phi * sh.l1p_yphi + 0.5f * yf / a +
-                 (1.0f / 12.0f) * (r.inv_phi - phi / (a * a)) -
-                 (1.0f / 120.0f) * (r.inv_phi3 - phi / ((a * a) * (a * a)));
-      } else {  // digamma(y + phi) by the asymptotic series (nb_grad._psi_asym)
-        const float inv2 = sh.inv_a1 * sh.inv_a1;
-        const float psi_yphi = sh.log_a1 - 0.5f * sh.inv_a1 -
-                               inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 / 252.0f));
-        phi_dd = phi * (psi_yphi - r.p1.psi8) + r.shift_f;
-      }
-      // phi * (softplus(d) - sigmoid(d)) >= 0
-      // (nb_grad.phi_softplus_minus_sigmoid); exp(min(d, 0)) = em there
-      float phi_sms;
-      if (d <= -1.386f) {
-        const float dn = fminf(d, 0.0f);
-        const float u = em;
-        const float series =
-            0.5f - u * (2.0f / 3.0f - u * (0.75f - u * (0.8f - u * (5.0f / 6.0f -
-            u * (6.0f / 7.0f - u * 0.875f)))));
-        phi_sms = expf(lpc + 2.0f * dn) * series;
-      } else {
-        const float sig = d > 0.0f ? 1.0f / (1.0f + em) : em / (1.0f + em);
-        phi_sms = phi * (softplus_d - sig);
-      }
-      const float dlogphi = r.below_cap ? phi_dd - phi_sms - yf * q : 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc_da[c] += x[c] * deta;
-      acc_dlp += m * dlogphi;
-    }
+    if (GRADS) grad_point<C>(r.gr, r.p1, sh, lpc, m, yf, x, d, em, l1pem, acc_da, acc_dlp);
   }
 };
 

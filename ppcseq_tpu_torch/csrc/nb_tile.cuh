@@ -1,6 +1,6 @@
-// The two launch layouts of the one-launch likelihood kernels K1/K2
-// (nb_glm_delta.cu), K3 (nb_glm_fused.cu) and K4 (nb_glm_stable.cu), written
-// once over a "form" that holds the kernel's own math.
+// The two launch layouts of the likelihood kernels K1/K2 (nb_glm_delta.cu),
+// K3 (nb_glm_fused.cu) and K4/K5 (nb_glm_stable.cu), each one launch per
+// call, written once over a "form" that holds the kernel's own math.
 //
 // A form F provides:
 //   BASE      true: the delta form (reads d0, alpha0, sigma_raw0; d from the

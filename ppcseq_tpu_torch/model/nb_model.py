@@ -16,7 +16,8 @@ Differences in form, not in math:
   ("auto" = "fast") is the hoisted kernel pair K1/K2 through ops/nb_kernel
   (the CUDA kernels on the card, their plain versions on the CPU);
   "plain" is torch autograd through `masked_likelihood`; "pallas" and
-  "pallas_fused" are the stable-form K4/K5 pair and the one-pass K3.
+  "pallas_fused" are the stable form (K5 under grad, K4 under no_grad) and
+  the one-pass K3.
 """
 
 from __future__ import annotations
@@ -391,7 +392,8 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     likelihood: "plain" (torch autograd through `masked_likelihood`, delta
     form when a baseline is attached), "fast" (nb_kernel.nb_glm_likelihood_fast:
     K1 with a baseline, K2 without), "pallas" (nb_kernel.nb_glm_likelihood:
-    the stable-form K4 forward and K5 backward, baseline ignored),
+    the stable form, value and gradients in one K5 launch, K4 under no_grad;
+    baseline ignored),
     "pallas_fused" (nb_kernel.nb_glm_likelihood_fused: K3, needs a
     baseline), or "auto" (= "fast" on every device).
     """

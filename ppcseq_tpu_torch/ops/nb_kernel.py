@@ -9,21 +9,21 @@ ppcseq_tpu/ops/nb_kernel.py (built at first use by ops/_build.py):
 | K2 nb_glm_plain     | _fastk_plain    | nb_glm_delta.cu  | nb_fast.glm_plain              |
 | K3 nb_glm_fused     | _fused_dkernel  | nb_glm_fused.cu  | delta_likelihood + likelihood_grads |
 | K4 nb_glm_stable_fwd| _fwd_kernel     | nb_glm_stable.cu | nb_model.stable_likelihood     |
-| K5 nb_glm_stable_bwd| _bwd_kernel     | nb_glm_stable.cu | nb_grad.likelihood_grads       |
+| K5 nb_glm_stable_bwd| _bwd_kernel     | nb_glm_stable.cu | stable_likelihood + likelihood_grads |
 
 The entries, each `(data, alpha[B,C,G], log_phi[B,G]) -> value[B]` and
 differentiable in alpha and log_phi, are the JAX package's:
 - `nb_glm_likelihood_fast`: K1 when the data carry a baseline, K2 when not.
   Value and gradients in one pass; under no_grad the value-only
   instantiation.
-- `nb_glm_likelihood`: the stable form, baseline ignored. Forward K4,
-  backward K5; under no_grad only K4 runs.
+- `nb_glm_likelihood`: the stable form, baseline ignored. K5 (value and
+  gradients in one pass); under no_grad K4 (value only).
 - `nb_glm_likelihood_fused`: K3, delta form; raises without a baseline.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the kernel's plain version. There is no fallback. `LAUNCHES` counts
 the launches of each kernel (CUDA only); `reset_launches()` zeroes them.
-`layout()` chooses the launch layout of K1-K4 per kernel and shape;
+`layout()` chooses the launch layout of each kernel per shape;
 `work()` counts a call's bytes and FP32 operations for its bound
 (chip_smoke.py), on the branch shares of `branch_shares()`.
 """
@@ -55,8 +55,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "nb_glm_fast_launch": [_P] * 14 + [_I] * 11 + [_P],
     "nb_glm_fused_launch": [_P] * 13 + [_I] * 10 + [_P],
-    "nb_glm_stable_fwd_launch": [_P] * 9 + [_I] * 9 + [_P],
-    "nb_glm_stable_bwd_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "nb_glm_stable_launch": [_P] * 11 + [_I] * 10 + [_P],
 }
 _MAX_C_FN = {"nb_glm_delta.cu": "nb_glm_fast_max_c", "nb_glm_fused.cu": "nb_glm_fused_max_c",
              "nb_glm_stable.cu": "nb_glm_stable_max_c"}
@@ -82,20 +81,18 @@ FP32_OPS_PER_S = 67e12
 # branch, expm1/e1 on its expf branch, the far branch as phi * softplus(d).
 EXP, LOG, DIV = 8, 20, 10
 _LOG1P = 2 * DIV + 15  # log1p01 and log1p_wide's series (nb_common.cuh)
-_SOFTPLUS = EXP + 2 + _LOG1P
 
-# Data-dependent branch shares (fractions of the B*S*G points, or of the
-# B*G genes for phi_lt6_gene) assumed when work() is not given the run's own
-# (branch_shares).
+# Data-dependent branch shares (fractions of the B*S*G points) assumed when
+# work() is not given the run's own (branch_shares).
 DEFAULT_SHARES = {"y_le7": 0.5, "mean_y_le7": 3.0, "y_gt7_phi_ge8": 0.25, "mid": 1.0,
-                  "series": 0.5, "psi_small": 0.0, "phi_lt6_gene": 0.5}
+                  "series": 0.5}
 
 
 def _ops_per_point(name, C, grads, sh):
     """FP32 operations of one kernel per point (b, s, g), per (b, g), and per
     data point (s, g): the terms that do not depend on b (K1/K2:
     lgamma(y+1) or log(y+1) and 1/(y+1), K1's softplus(d0) and sigmoid(-d0);
-    K3/K4: 1/(y+1) and 1/(y+1)^3, K3's softplus(d0) and sigmoid(-d0)). The
+    K3-K5: 1/(y+1) and 1/(y+1)^3, K3's softplus(d0) and sigmoid(-d0)). The
     function needs these once per (s, g), whichever layout runs it."""
     small, big_phi = sh["y_le7"], sh["y_gt7_phi_ge8"]
     small_phi = 1.0 - small - big_phi  # y > 7, phi < 8
@@ -115,31 +112,24 @@ def _ops_per_point(name, C, grads, sh):
             pt += EXP + DIV + 14 + 2 * C + series * (EXP + 16) + (1 - series) * 3
             pt += small * 14 + big_phi * 14 + small_phi * (DIV + 12)
         return pt, EXP + 9 * LOG + 10 * DIV + 40 + C, datum
-    if name in ("nb_glm_fused", "nb_glm_stable_fwd"):  # nb_tile.cuh forms
-        # nb2_part1's rest per point (nb_common.cuh part1_point), its phi
-        # terms per (b, g) (build_part1), 1/(y+1) and 1/(y+1)^3 per (s, g)
-        part1 = (1 + small * 7 + (1 - small) * (13 + 3 * DIV + _LOG1P)
-                 + big_phi * (DIV + _LOG1P + 8) + small_phi * (LOG + 4))
-        gene = EXP + 10 * LOG + 4 * DIV + 58
-        datum = 1 + (1 - small) * (3 + 2 * DIV)
-        if name == "nb_glm_stable_fwd":  # nb_glm_stable.cu StableFwd
-            return 2 * C + 12 + EXP + _LOG1P + part1, gene, datum
+    # nb_tile.cuh forms K3-K5: nb2_part1's rest per point (nb_common.cuh
+    # part1_point), its phi terms per (b, g) (build_part1), 1/(y+1) and
+    # 1/(y+1)^3 per (s, g)
+    part1 = (1 + small * 7 + (1 - small) * (13 + 3 * DIV + _LOG1P)
+             + big_phi * (DIV + _LOG1P + 8) + small_phi * (LOG + 4))
+    gene = EXP + 10 * LOG + 4 * DIV + 58
+    datum = 1 + (1 - small) * (3 + 2 * DIV)
+    pt = 2 * C + 12 + EXP + _LOG1P + part1  # nb_glm_stable.cu Stable: the value
+    if name == "nb_glm_fused":  # nb_glm_fused.cu Fused: the delta form's value
         datum += EXP + _LOG1P + DIV + 4  # softplus(d0), sigmoid(-d0)
-        gene += C + 2
-        pt = (2 * C + 16 + EXP + _LOG1P + part1  # nb_glm_fused.cu Fused
-              + mid * (2 * EXP + 2 * _LOG1P + 9) + (1 - mid) * 3)
-        if grads:
-            gene += 10 * DIV + 18
-            pt += EXP + DIV + 15 + 2 * C
-            pt += small * 7 + big_phi * (3 * DIV + 11) + small_phi * (DIV + 11)
-            pt += series * (EXP + 16) + (1 - series) * (DIV + 3)
-        return pt, gene, datum
-    if name == "nb_glm_stable_bwd":  # nb_glm_stable.cu
-        digamma = 1 + DIV + LOG + 11
-        pt = (1 + 2 * C + 2 + EXP + DIV + 2 + 2 + LOG + _SOFTPLUS + EXP + 4
-              + digamma + sh["psi_small"] * (6 * DIV + 13) + 9 + 2 * C + 1)
-        return pt, EXP + digamma + sh["phi_lt6_gene"] * (6 * DIV + 13) + C + 2, 0
-    raise ValueError(f"unknown kernel {name!r}")
+        gene += C + 1
+        pt += 4 + mid * (2 * EXP + 2 * _LOG1P + 9) + (1 - mid) * 3
+    if grads:  # nb_common.cuh build_grad_row per (b, g), grad_point per point
+        gene += 10 * DIV + 19
+        pt += EXP + DIV + 15 + 2 * C
+        pt += small * 7 + big_phi * (3 * DIV + 11) + small_phi * (DIV + 11)
+        pt += series * (EXP + 16) + (1 - series) * (DIV + 3)
+    return pt, gene, datum
 
 
 def work(name, B, S, C, G, want_grads=True, shares=None):
@@ -159,10 +149,9 @@ def work(name, B, S, C, G, want_grads=True, shares=None):
     sh = dict(DEFAULT_SHARES, **(shares or {}))
     baseline = name in ("nb_glm_delta", "nb_glm_fused")
     grads = want_grads and name != "nb_glm_stable_fwd"
-    value = name != "nb_glm_stable_bwd"
     n = 4 * (2 * S * G + S * C + B * C * G + B * G)  # counts, mask, X, alpha, log_phi
     n += 4 * (S * G + C * G + G) if baseline else 4 * S  # d0, alpha0, sigma_raw0 | exposure
-    n += 4 * (B * value + (B * C * G + B * G) * grads)  # value, dalpha, dlog_phi
+    n += 4 * (B + (B * C * G + B * G) * grads)  # value, dalpha, dlog_phi
     per_point, per_gene, per_datum = _ops_per_point(name, C, grads, sh)
     ops = B * S * G * per_point + B * G * per_gene + S * G * per_datum
     t_bytes, t_ops = n / HBM_BYTES_PER_S * 1e6, ops / FP32_OPS_PER_S * 1e6
@@ -174,8 +163,7 @@ def branch_shares(data, alpha, log_phi):
     """The data-dependent branch shares of work() for these inputs (plain
     torch, on the inputs' device): y <= 7; y > 7 with phi >= 8; the delta
     form's mid range -2 < dlo < 8 (1.0 without a baseline); the gradient's
-    series branch d <= -1.386; digamma's recurrence y + phi < 6, and phi < 6
-    per (b, g); and the mean count of the y <= 7 points."""
+    series branch d <= -1.386; and the mean count of the y <= 7 points."""
     y = data.counts.to(alpha.dtype)
     lpc = torch.clamp(log_phi, max=nb_fast.LOG_PHI_CAP)
     phi = torch.exp(lpc)[:, None, :]
@@ -186,8 +174,6 @@ def branch_shares(data, alpha, log_phi):
         "mean_y_le7": float(y[small].mean()) if bool(small.any()) else 0.0,
         "y_gt7_phi_ge8": float((~small & (phi >= 8.0)).to(alpha.dtype).mean()),
         "series": float((d <= -1.386).to(alpha.dtype).mean()),
-        "psi_small": float((y + phi < 6.0).to(alpha.dtype).mean()),
-        "phi_lt6_gene": float((phi < 6.0).to(alpha.dtype).mean()),
         "mid": 1.0,
     }
     if data.d0 is not None:
@@ -265,7 +251,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# ---- launch layouts of K1-K4 (csrc/nb_tile.cuh) --------------------------------
+# ---- launch layouts (csrc/nb_tile.cuh) ------------------------------------------
 SM_COUNT = 132  # the H100 SXM's SMs
 _SMEM_BUDGET = 100 * 1024  # per block, so that at least two blocks share an SM
 _MAX_THREADS = 256  # as MAX_THREADS in csrc/nb_common.cuh
@@ -277,7 +263,8 @@ _TILES = (16, 8, 4)  # genes per block, widest first
 # reads d0, alpha0 and sigma_raw0 (else exposure), nh = staged planes of
 # per-(s, g) terms, tab = per-(b, g) table slots
 _CARVING = {"nb_glm_delta": (1, 4, 16), "nb_glm_plain": (0, 2, 16),
-            "nb_glm_fused": (1, 4, 16), "nb_glm_stable_fwd": (0, 2, 8)}
+            "nb_glm_fused": (1, 4, 16), "nb_glm_stable_fwd": (0, 2, 8),
+            "nb_glm_stable_bwd": (0, 2, 16)}
 
 
 def _pow2_at_least(n):
@@ -285,19 +272,20 @@ def _pow2_at_least(n):
 
 
 def layout(name, B, S, C, G, want_grads=True):
-    """Launch layout of kernel `name` (K1-K4) at (B, S, C, G). The rules
+    """Launch layout of kernel `name` at (B, S, C, G). The rules
     follow H100 sweeps of every layout (bench_kernels.py --sweep, PERF.md).
 
     K1-K3 at many b and small S (B >= 32, S <= 32): the row layout (_row).
     Otherwise the tiled one (_tiled) with BY the largest power of two up to
     min(B, 8) and T the widest of 16, 8, 4 that gives six blocks per SM
-    (K4: four; its points are the cheapest, so the tile's staging and
-    hoisting pay even at (128, 21, 515)), the sample lanes SY filling a
-    block of 256 threads; where no T does (a small call), as many sample
-    lanes as S uses, up to 64, and the tile that fills the block."""
+    (the stable form's K4 and K5: four, at every shape; their points are
+    the cheapest, so the tile's staging and hoisting pay even at (128, 21,
+    515)), the sample lanes SY filling a block of 256 threads; where no T
+    does (a small call), as many sample lanes as S uses, up to 64, and the
+    tile that fills the block."""
     if name not in _CARVING:
         raise ValueError(f"no launch layout for kernel {name!r}")
-    stable = name == "nb_glm_stable_fwd"
+    stable = name in ("nb_glm_stable_fwd", "nb_glm_stable_bwd")
     if B >= 32 and S <= 32 and not stable:
         return _row(B, S, G)
     BY = 1 << (min(B, 8).bit_length() - 1)
@@ -334,7 +322,7 @@ def _tiled(name, B, S, C, G, want_grads, T, BY, SY):
             "threads": T * BY * SY, "smem": fixed + SC * per_row, "n_chunks": -(-S // SC)}
 
 
-_TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its K1-K4 launches share
+_TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its launches share
 
 
 def _ticket(dev, stream):
@@ -345,7 +333,7 @@ def _ticket(dev, stream):
 
 
 def _one_launch_outputs(name, dev, B, S, C, G, want_grads):
-    """(layout, value, dalpha, dlog_phi, partial, ticket) of one K1-K4 call:
+    """(layout, value, dalpha, dlog_phi, partial, ticket) of one call:
     the outputs, the [B, n_tiles] double scratch and the stream's ticket."""
     lay = layout(name, B, S, C, G, want_grads)
     f32 = torch.float32
@@ -415,29 +403,29 @@ def launch_fused(X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, want_g
     return (value, dalpha, dlog_phi) if want_grads else value
 
 
-def launch_stable_fwd(X, exposure, counts, mask, alpha, log_phi):
-    """K4: value[B] of the stable form (inputs as launch_plain)."""
+def _launch_stable(X, exposure, counts, mask, alpha, log_phi, want_grads):
     dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    lay, value, _, _, partial, ticket = _one_launch_outputs(
-        "nb_glm_stable_fwd", dev, B, S, C, G, False)
-    _run("nb_glm_stable_fwd_launch", "nb_glm_stable_fwd", dev, (
+    name = "nb_glm_stable_bwd" if want_grads else "nb_glm_stable_fwd"
+    lay, value, dalpha, dlog_phi, partial, ticket = _one_launch_outputs(
+        name, dev, B, S, C, G, want_grads)
+    _run("nb_glm_stable_launch", name, dev, (
         X.data_ptr(), exposure.data_ptr(), counts.data_ptr(), mask.data_ptr(),
         alpha.data_ptr(), log_phi.data_ptr(), partial.data_ptr(), value.data_ptr(),
-        ticket.data_ptr(), B, S, C, G, *_layout_args(lay),
+        _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(), B, S, C, G, int(bool(want_grads)),
+        *_layout_args(lay),
     ))
-    return value
+    return (value, dalpha, dlog_phi) if want_grads else value
+
+
+def launch_stable_fwd(X, exposure, counts, mask, alpha, log_phi):
+    """K4: value[B] of the stable form (inputs as launch_plain)."""
+    return _launch_stable(X, exposure, counts, mask, alpha, log_phi, want_grads=False)
 
 
 def launch_stable_bwd(X, exposure, counts, mask, alpha, log_phi):
-    """K5: (dalpha[B,C,G], dlog_phi[B,G]) of the stable form."""
-    dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    dalpha = torch.empty((B, C, G), dtype=torch.float32, device=dev)
-    dlog_phi = torch.empty((B, G), dtype=torch.float32, device=dev)
-    _run("nb_glm_stable_bwd_launch", "nb_glm_stable_bwd", dev, (
-        X.data_ptr(), exposure.data_ptr(), counts.data_ptr(), mask.data_ptr(),
-        alpha.data_ptr(), log_phi.data_ptr(), dalpha.data_ptr(), dlog_phi.data_ptr(), B, S, C, G,
-    ))
-    return dalpha, dlog_phi
+    """K5: (value[B], dalpha[B,C,G], dlog_phi[B,G]) of the stable form, in
+    one launch (inputs as launch_plain)."""
+    return _launch_stable(X, exposure, counts, mask, alpha, log_phi, want_grads=True)
 
 
 def _on(dev):
@@ -462,39 +450,38 @@ def _fast(data, alpha, log_phi, want_grads):
                              alpha, log_phi, want_grads)
 
 
-def _fused(data, alpha, log_phi, want_grads):
-    if _on(alpha.device):
-        return launch_fused(data.X, data.counts, data.like_mask, data.d0, alpha.contiguous(),
-                            data.alpha0, log_phi.contiguous(), data.sigma_raw0, want_grads)
-    from ppcseq_tpu_torch.model.nb_model import delta_likelihood
-
-    value = delta_likelihood(data, alpha, log_phi)
+def _with_plain_grads(value, data, alpha, log_phi, want_grads):
+    """value, or (value, *likelihood_grads): the gradient half of K3's and
+    K5's plain versions."""
     if not want_grads:
         return value
     return (value, *nb_grad.likelihood_grads(data.X, data.exposure_rate, data.counts,
                                              data.like_mask, alpha, log_phi))
 
 
-def _stable_value(data, alpha, log_phi):
+def _fused(data, alpha, log_phi, want_grads):
     if _on(alpha.device):
-        return launch_stable_fwd(data.X, data.exposure_rate, data.counts, data.like_mask,
-                                 alpha.contiguous(), log_phi.contiguous())
+        return launch_fused(data.X, data.counts, data.like_mask, data.d0, alpha.contiguous(),
+                            data.alpha0, log_phi.contiguous(), data.sigma_raw0, want_grads)
+    from ppcseq_tpu_torch.model.nb_model import delta_likelihood
+
+    return _with_plain_grads(delta_likelihood(data, alpha, log_phi), data, alpha, log_phi,
+                             want_grads)
+
+
+def _stable(data, alpha, log_phi, want_grads):
+    if _on(alpha.device):
+        return _launch_stable(data.X, data.exposure_rate, data.counts, data.like_mask,
+                              alpha.contiguous(), log_phi.contiguous(), want_grads)
     from ppcseq_tpu_torch.model.nb_model import stable_likelihood
 
-    return stable_likelihood(data, alpha, log_phi)
-
-
-def _stable_grads(data, alpha, log_phi):
-    if _on(alpha.device):
-        return launch_stable_bwd(data.X, data.exposure_rate, data.counts, data.like_mask,
-                                 alpha.contiguous(), log_phi.contiguous())
-    return nb_grad.likelihood_grads(data.X, data.exposure_rate, data.counts, data.like_mask,
-                                    alpha, log_phi)
+    return _with_plain_grads(stable_likelihood(data, alpha, log_phi), data, alpha, log_phi,
+                             want_grads)
 
 
 class _GradsInForward(torch.autograd.Function):
-    """Value and gradients from one pass (K1/K2/K3); backward scales the
-    stored gradients by grad_out[b]."""
+    """Value and gradients from one pass (K1, K2, K3 or K5);
+    backward scales the stored gradients by grad_out[b]."""
 
     @staticmethod
     def forward(ctx, alpha, log_phi, data, compute):
@@ -506,22 +493,6 @@ class _GradsInForward(torch.autograd.Function):
     def backward(ctx, grad_out):
         dalpha, dlog_phi = ctx.saved_tensors
         return grad_out[:, None, None] * dalpha, grad_out[:, None] * dlog_phi, None, None
-
-
-class _StableForwardBackward(torch.autograd.Function):
-    """Forward K4, backward K5 (scaled by grad_out[b])."""
-
-    @staticmethod
-    def forward(ctx, alpha, log_phi, data):
-        ctx.data = data
-        ctx.save_for_backward(alpha, log_phi)
-        return _stable_value(data, alpha, log_phi)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        alpha, log_phi = ctx.saved_tensors
-        dalpha, dlog_phi = _stable_grads(ctx.data, alpha, log_phi)
-        return grad_out[:, None, None] * dalpha, grad_out[:, None] * dlog_phi, None
 
 
 def _wants_grad(alpha, log_phi):
@@ -540,11 +511,11 @@ def nb_glm_likelihood_fast(data, alpha, log_phi):
 
 def nb_glm_likelihood(data, alpha, log_phi):
     """Masked likelihood in the stable form, value[B]; a baseline on `data`
-    is ignored (nb_kernel.py:201-210 of the JAX package). Forward K4,
-    backward K5."""
+    is ignored (nb_kernel.py:201-210 of the JAX package). Under grad K5
+    (value and gradients in one launch), under no_grad K4."""
     if _wants_grad(alpha, log_phi):
-        return _StableForwardBackward.apply(alpha, log_phi, data)
-    return _stable_value(data, alpha, log_phi)
+        return _GradsInForward.apply(alpha, log_phi, data, _stable)
+    return _stable(data, alpha, log_phi, want_grads=False)
 
 
 def nb_glm_likelihood_fused(data, alpha, log_phi):

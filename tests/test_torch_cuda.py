@@ -69,7 +69,7 @@ def _f64(data):
 
 
 def _launch(data, alpha, log_phi, kernel):
-    """The kernel's (value, dalpha, dlog_phi); value None for K5 alone."""
+    """The kernel's (value, dalpha, dlog_phi); "nb_glm_stable" is K5."""
     d = data
     if kernel == "nb_glm_delta":
         return nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0, log_phi,
@@ -80,10 +80,8 @@ def _launch(data, alpha, log_phi, kernel):
     if kernel == "nb_glm_fused":
         return nb_kernel.launch_fused(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0, log_phi,
                                       d.sigma_raw0, want_grads=True)
-    args = (d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi)
-    if kernel == "nb_glm_stable":
-        return (nb_kernel.launch_stable_fwd(*args), *nb_kernel.launch_stable_bwd(*args))
-    return (None, *nb_kernel.launch_stable_bwd(*args))  # nb_glm_stable_bwd
+    return nb_kernel.launch_stable_bwd(d.X, d.exposure_rate, d.counts, d.like_mask, alpha,
+                                       log_phi)  # nb_glm_stable(_bwd)
 
 
 def _plain(data, alpha, log_phi, kernel):
@@ -102,15 +100,14 @@ def _plain(data, alpha, log_phi, kernel):
 
 
 # Values are held at rtol 2e-5 and gradients at |d|/(1+|g|) < 1e-4 against
-# the plain version. K3 and K5 compute the gradient in another grouping than
-# their plain version; where the plain float32 gradient is itself 1e-4 or
-# more from float64, they are held instead at tests/test_nb_kernel.py's
-# tolerances (rtol, atol(want)) AND at most a stated multiple of the plain
-# version's own |d|/(1+|g|) from float64 (K3 1.2x, K5 3.2x measured on the
-# H100 at the chip_smoke.py shapes).
+# the plain version. K3 computes the gradient at another d than its plain
+# version; where the plain float32 gradient is itself 1e-4 or more from
+# float64, it is held instead at tests/test_nb_kernel.py's tolerances (rtol,
+# atol(want)) AND at most a stated multiple of the plain version's own
+# |d|/(1+|g|) from float64 (1.2x measured on the H100 at the chip_smoke.py
+# shapes). K5 computes the plain version's terms at its d: no fallback.
 _GRAD_FALLBACK = {
     "nb_glm_fused": (2e-3, lambda w: 2e-3 * (1 + float(w.abs().max())), 2.0),
-    "nb_glm_stable": (3e-3, lambda w: 3e-2, 4.0),
 }
 
 
@@ -136,11 +133,8 @@ def test_kernel_matches_plain_version(cuda_case, kernel):
     nb_kernel.reset_launches()
     kern = _launch(data, alpha, log_phi, kernel)
     torch.cuda.synchronize()
-    if kernel == "nb_glm_stable":
-        assert nb_kernel.LAUNCHES["nb_glm_stable_fwd"] == nb_kernel.LAUNCHES["nb_glm_stable_bwd"] == 1
-    else:
-        assert nb_kernel.LAUNCHES[kernel] == 1
-    assert sum(nb_kernel.LAUNCHES.values()) == (2 if kernel == "nb_glm_stable" else 1)
+    assert nb_kernel.LAUNCHES[{"nb_glm_stable": "nb_glm_stable_bwd"}.get(kernel, kernel)] == 1
+    assert sum(nb_kernel.LAUNCHES.values()) == 1
     plain = _plain(data, alpha, log_phi, kernel)
     plain64 = _plain(_f64(data), alpha.double(), log_phi.double(), kernel)
     np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=2e-5)
@@ -153,7 +147,7 @@ def test_kernel_matches_plain_version(cuda_case, kernel):
 _ENTRIES = {
     "nb_glm_likelihood_fast": ("nb_glm_delta", {"nb_glm_delta": 2}),
     "nb_glm_likelihood_fast-nobaseline": ("nb_glm_plain", {"nb_glm_plain": 2}),
-    "nb_glm_likelihood": ("nb_glm_stable_bwd", {"nb_glm_stable_fwd": 2, "nb_glm_stable_bwd": 1}),
+    "nb_glm_likelihood": ("nb_glm_stable_bwd", {"nb_glm_stable_bwd": 1, "nb_glm_stable_fwd": 1}),
     "nb_glm_likelihood_fused": ("nb_glm_fused", {"nb_glm_fused": 2}),
 }
 
@@ -251,6 +245,10 @@ def _value_only(data, alpha, log_phi, kernel):
                                        log_phi)
 
 
+# layout()'s rule: the stable form (K4, K5) is tiled at every shape
+_ALWAYS_TILED = ("nb_glm_stable_fwd", "nb_glm_stable_bwd")
+
+
 def _check_ragged(kernel, B, S, G):
     """The kernel against its plain version at value rtol 2e-5 and gradient
     |d|/(1+|g|) < 1e-4 where the layout has several S-chunks, a partial
@@ -268,7 +266,7 @@ def _check_ragged(kernel, B, S, G):
     lay = nb_kernel.layout(kernel, B, S, 2, G)
     if S == 601:
         assert lay["n_chunks"] > 1 and G % lay["T"] != 0
-    assert (lay["SY"] == 0) == (B == 33 and kernel != "nb_glm_stable_fwd")  # K4: always tiled
+    assert (lay["SY"] == 0) == (B == 33 and kernel not in _ALWAYS_TILED)
     value_only = _value_only(data, alpha, log_phi, kernel)
     if kernel == "nb_glm_stable_fwd":
         want = nb_model.stable_likelihood(data, alpha, log_phi)
@@ -305,6 +303,15 @@ def test_k3_k4_ragged_edges_match_plain(kernel, B, S, G):
     _check_ragged(kernel, B, S, G)
 
 
+@pytest.mark.parametrize("B,S,G", _RAGGED, ids=[f"B{b}-S{s}-G{g}" for b, s, g in _RAGGED])
+def test_k5_ragged_edges_match_plain(B, S, G):
+    """K5's value at rtol 2e-5 against stable_likelihood and its gradients
+    at |d|/(1+|g|) < 1e-4 against likelihood_grads (no fallback), exactly
+    zero for the masked gene (_check_ragged)."""
+    _needs_card()
+    _check_ragged("nb_glm_stable_bwd", B, S, G)
+
+
 def _launch_any(data, alpha, log_phi, kernel):
     if kernel == "nb_glm_stable_fwd":
         return (_value_only(data, alpha, log_phi, kernel),)
@@ -332,6 +339,17 @@ def test_k3_k4_bitwise_repeatable(kernel, B, S, G):
     first = _launch_any(data, alpha, log_phi, kernel)
     for _ in range(49):
         again = _launch_any(data, alpha, log_phi, kernel)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("B,S,G", [(9, 601, 4201), (40, 21, 515)], ids=["B9-S601", "B40-S21"])
+def test_k5_bitwise_repeatable(B, S, G):
+    """As test_k12_bitwise_repeatable for K5's value and gradients."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(B, S, G)
+    first = _launch(data, alpha, log_phi, "nb_glm_stable_bwd")
+    for _ in range(49):
+        again = _launch(data, alpha, log_phi, "nb_glm_stable_bwd")
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -369,6 +387,25 @@ def test_k3_k4_ticket_survives_many_launches():
     torch.cuda.synchronize()
     assert all(torch.equal(v, want) for v in got[0::2])
     assert all(torch.equal(v, want4) for v in got[1::2])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(nb_kernel._TICKETS[(alpha.device.index, stream)].item()) == 0
+
+
+def test_k5_ticket_survives_many_launches():
+    """1,000 back-to-back launches on the stream's one ticket, K5 at B = 40
+    (five b-chunks) and at B = 1 alternating: every output right and the
+    ticket back at 0."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(40, 21, 515)
+    want = _launch(data, alpha, log_phi, "nb_glm_stable_bwd")
+    want1 = _launch(data, alpha[:1], log_phi[:1], "nb_glm_stable_bwd")
+    got = []
+    for i in range(500):
+        got.append(_launch(data, alpha, log_phi, "nb_glm_stable_bwd"))
+        got.append(_launch(data, alpha[:1], log_phi[:1], "nb_glm_stable_bwd"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for out in got[0::2] for a, b in zip(out, want))
+    assert all(torch.equal(a, b) for out in got[1::2] for a, b in zip(out, want1))
     stream = torch.cuda.current_stream().cuda_stream
     assert int(nb_kernel._TICKETS[(alpha.device.index, stream)].item()) == 0
 
@@ -426,7 +463,31 @@ def test_k3_k4_one_kernel_per_call_and_value_only_under_no_grad(B, kind):
         _assert_one_kernel(lambda: nb_kernel.nb_glm_likelihood_fused(data, alpha, log_phi), kind,
                            "Fused,2,false")
         _assert_one_kernel(lambda: nb_kernel.nb_glm_likelihood(data, alpha, log_phi), "tile",
-                           "StableFwd,2,false")
+                           "Stable<false>,2,false")
+
+
+@pytest.mark.parametrize("B", [4, 40])
+def test_k5_one_kernel_per_gradient_call(B):
+    """An autograd call of the stable-form entry launches K5 once and K4
+    never, one CUDA kernel (csrc/nb_tile.cuh's tile_kernel or row_kernel at
+    <Stable<true>, C, true>); a no_grad call launches K4 once and K5 never."""
+    _needs_card()
+    data, alpha, log_phi = _ragged_case(B, 21, 515)
+    a = alpha.clone().requires_grad_(True)
+    nb_kernel.nb_glm_likelihood(data, a, log_phi)  # warm: build, ticket
+    kind = "row" if nb_kernel.layout("nb_glm_stable_bwd", B, 21, 2, 515)["SY"] == 0 else "tile"
+    nb_kernel.reset_launches()
+    nb_kernel.nb_glm_likelihood(data, a, log_phi).sum().backward()
+    torch.cuda.synchronize()
+    assert nb_kernel.LAUNCHES["nb_glm_stable_bwd"] == 1 and nb_kernel.LAUNCHES["nb_glm_stable_fwd"] == 0
+    _assert_one_kernel(lambda: nb_kernel.nb_glm_likelihood(data, a, log_phi), kind,
+                       "Stable<true>,2,true")
+    nb_kernel.reset_launches()
+    with torch.no_grad():
+        nb_kernel.nb_glm_likelihood(data, alpha, log_phi)
+        torch.cuda.synchronize()
+        assert nb_kernel.LAUNCHES["nb_glm_stable_fwd"] == 1
+        assert nb_kernel.LAUNCHES["nb_glm_stable_bwd"] == 0
 
 
 def test_kernel_refuses_wrong_dtype(cuda_case):
@@ -457,5 +518,5 @@ def test_short_hmc_run_on_the_card(name):
     assert res.draws.shape == (16, 10, dims.dim)
     launched = {k for k, v in nb_kernel.LAUNCHES.items() if v}
     assert launched == {"plain": set(), "fast": {"nb_glm_delta"},
-                        "pallas": {"nb_glm_stable_fwd", "nb_glm_stable_bwd"},
+                        "pallas": {"nb_glm_stable_bwd"},
                         "pallas_fused": {"nb_glm_fused"}}[name]

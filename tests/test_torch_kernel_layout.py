@@ -1,4 +1,4 @@
-"""The K1-K4 launch layouts (ops/nb_kernel.layout) and the work count behind
+"""The K1-K5 launch layouts (ops/nb_kernel.layout) and the work count behind
 the kernels' bounds (ops/nb_kernel.work), on the CPU: plain arithmetic on
 shapes, no card needed. The layout's index arithmetic is the kernels'
 (csrc/nb_tile.cuh): block (x, y) owns genes [x*T, x*T + T) and rows b in
@@ -21,8 +21,10 @@ _TILE = (_CSRC / "nb_tile.cuh").read_text()
 _FORMS = {"nb_glm_delta": ("nb_glm_delta.cu", "Fast", {"DELTA": True}),
           "nb_glm_plain": ("nb_glm_delta.cu", "Fast", {"DELTA": False}),
           "nb_glm_fused": ("nb_glm_fused.cu", "Fused", {}),
-          "nb_glm_stable_fwd": ("nb_glm_stable.cu", "StableFwd", {})}
+          "nb_glm_stable_fwd": ("nb_glm_stable.cu", "Stable", {"K5": False}),
+          "nb_glm_stable_bwd": ("nb_glm_stable.cu", "Stable", {"K5": True})}
 K34 = ["nb_glm_fused", "nb_glm_stable_fwd"]
+K345 = K34 + ["nb_glm_stable_bwd"]
 
 
 def _py(expr):
@@ -72,9 +74,11 @@ def _smem_bytes(name, lay, C, grads):
 def test_source_carving_is_read():
     """The translated source functions give the carving written out by hand
     at (T, BY, SY) = (16, 8, 2), C = 2, one sample row, for the forms of
-    K1-K4 (csrc/nb_tile.cuh)."""
+    K1-K5 (csrc/nb_tile.cuh); K5's table holds the 8 ratios beside K4's 8
+    logs."""
     assert _padded(16) == 20 and _padded(8) == 12 and _padded(4) == 4
-    assert [_form_constants(n) for n in _FORMS] == [(1, 4, 16), (0, 2, 16), (1, 4, 16), (0, 2, 8)]
+    assert [_form_constants(n) for n in _FORMS] == [(1, 4, 16), (0, 2, 16), (1, 4, 16), (0, 2, 8),
+                                                    (0, 2, 16)]
     assert all(nb_kernel._CARVING[n] == _form_constants(n) for n in _FORMS)
     assert _stage_words(1, 16, 2, 1, 4) == 20 * 7 + 2
     assert _stage_words(1, 16, 2, 0, 2) == 20 * 4 + 2 + 1
@@ -127,15 +131,12 @@ def test_layout_covers_every_point_once(S, G):
                         _smem_bytes(name, one_more, C, grads) > nb_kernel._SMEM_BUDGET)
 
 
-@pytest.mark.parametrize("name", K34)
-@pytest.mark.parametrize("S,G", SHAPES, ids=[f"S{S}-G{G}" for S, G in SHAPES])
-def test_k3_k4_layout_covers_every_point_once(name, S, G):
-    """As test_layout_covers_every_point_once for K3 and K4: every (b, g) in
-    one block, the S-chunks tile [0, S), warps of 4 genes x 8 lanes, at most
-    256 threads, shared memory within the budget (<= 232,448 B) and equal to
-    csrc/nb_tile.cuh's carving with the form's constants read out of its
-    source, for B in {1, 8, 100, 128}, C in 1..8, with and without
-    gradients."""
+def _check_form_cover(name, S, G):
+    """Every (b, g) in one block, the S-chunks tile [0, S), warps of 4 genes
+    x 8 lanes, at most 256 threads, shared memory within the budget (<=
+    232,448 B) and equal to csrc/nb_tile.cuh's carving with the form's
+    constants read out of its source, for B in {1, 8, 100, 128}, C in 1..8,
+    with and without gradients."""
     for B in (1, 8, 100, 128):
         for C in range(1, 9):
             for grads in (True, False):
@@ -157,6 +158,34 @@ def test_k3_k4_layout_covers_every_point_once(name, S, G):
                 one_more = dict(lay, SC=lay["SC"] + 1)
                 assert lay["n_chunks"] == 1 or (
                     _smem_bytes(name, one_more, C, grads) > nb_kernel._SMEM_BUDGET)
+
+
+@pytest.mark.parametrize("name", K34)
+@pytest.mark.parametrize("S,G", SHAPES, ids=[f"S{S}-G{G}" for S, G in SHAPES])
+def test_k3_k4_layout_covers_every_point_once(name, S, G):
+    """As test_layout_covers_every_point_once for K3 and K4 (_check_form_cover)."""
+    _check_form_cover(name, S, G)
+
+
+@pytest.mark.parametrize("S,G", SHAPES, ids=[f"S{S}-G{G}" for S, G in SHAPES])
+def test_k5_layout_covers_every_point_once(S, G):
+    """As test_layout_covers_every_point_once for K5, whose form (Stable<true>)
+    carries 16 table slots (_check_form_cover)."""
+    _check_form_cover("nb_glm_stable_bwd", S, G)
+
+
+# K4's layout at the ADVI step, the bench HMC and the scale HMC (C = 2), as
+# it was before K5 became a form of the same source: K4's value-only
+# instantiation keeps its carving (TAB = 8) and layout
+_K4_LAYOUTS = {(1, 21, 515): (8, 1, 32, 21, 5596), (128, 21, 515): (16, 8, 2, 21, 12604),
+               (8, 100, 50000): (16, 8, 2, 100, 38832)}
+
+
+@pytest.mark.parametrize("B,S,G", list(_K4_LAYOUTS), ids=["A", "H", "Z"])
+def test_k4_layout_and_smem_unchanged(B, S, G):
+    for grads in (True, False):
+        lay = nb_kernel.layout("nb_glm_stable_fwd", B, S, 2, G, grads)
+        assert (lay["T"], lay["BY"], lay["SY"], lay["SC"], lay["smem"]) == _K4_LAYOUTS[(B, S, G)]
 
 
 @pytest.mark.parametrize("B,S,G,min_blocks", [(1, 21, 515, 64), (1, 100, 600, 64),
@@ -198,6 +227,7 @@ _OUT = 4 * (1 + _BCG + _BG)  # value, dalpha, dlog_phi
     ("nb_glm_plain", True, _K2 + _OUT), ("nb_glm_plain", False, _K2 + 4),
     ("nb_glm_fused", True, _K1 + _OUT), ("nb_glm_fused", False, _K1 + 4),
     ("nb_glm_stable_fwd", True, _K2 + 4), ("nb_glm_stable_fwd", False, _K2 + 4),
+    ("nb_glm_stable_bwd", True, _K2 + _OUT), ("nb_glm_stable_bwd", False, _K2 + 4),
 ])
 def test_work_bytes_by_hand(name, grads, expected):
     w = nb_kernel.work(name, 1, 21, 2, 515, want_grads=grads)
@@ -206,7 +236,9 @@ def test_work_bytes_by_hand(name, grads, expected):
                           ("nb_glm_plain", True): 99_136, ("nb_glm_plain", False): 92_956,
                           ("nb_glm_fused", True): 148_492, ("nb_glm_fused", False): 142_312,
                           ("nb_glm_stable_fwd", True): 92_956,
-                          ("nb_glm_stable_fwd", False): 92_956}[(name, grads)]
+                          ("nb_glm_stable_fwd", False): 92_956,
+                          ("nb_glm_stable_bwd", True): 99_136,
+                          ("nb_glm_stable_bwd", False): 92_956}[(name, grads)]
 
 
 @pytest.mark.parametrize("name", list(nb_kernel.KERNELS))
@@ -218,9 +250,9 @@ def test_work_bound_is_the_larger_side(name):
     t_bytes, t_ops = w["bytes"] / 3.35e12 * 1e6, w["ops"] / 67e12 * 1e6
     assert w["bound_us"] == pytest.approx(max(t_bytes, t_ops))
     assert w["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
-    # the dearer phi branch at y > 7: phi < 8, except in K3/K4, whose phi < 8
+    # the dearer phi branch at y > 7: phi < 8, except in K3-K5, whose phi < 8
     # terms are built once per (b, g) while phi >= 8 keeps log1p(y/phi) per point
-    dear_phi = 0.5 if name in K34 else 0.0
+    dear_phi = 0.5 if name in K345 else 0.0
     cheap = nb_kernel.work(name, 8, 100, 2, 50000,
                            shares={"series": 0.0, "y_gt7_phi_ge8": 0.5 - dear_phi})
     dear = nb_kernel.work(name, 8, 100, 2, 50000,
@@ -234,7 +266,7 @@ def test_work_does_not_follow_the_layout(name):
     both sides of layout()'s switch from tiled to row at B = 32, S <= 32
     (the per-(s, g) terms once per (s, g) in either layout)."""
     assert [nb_kernel.layout(name, b, 21, 2, 515)["SY"] == 0 for b in (8, 16, 40)] == \
-        [False, False, name != "nb_glm_stable_fwd"]
+        [False, False, name not in ("nb_glm_stable_fwd", "nb_glm_stable_bwd")]
     ops = {b: nb_kernel.work(name, b, 21, 2, 515)["ops"] for b in (8, 16, 40)}
     assert ops[40] - ops[16] == pytest.approx(3 * (ops[16] - ops[8]), rel=1e-12)
 
@@ -248,10 +280,10 @@ def test_launch_signature_matches_source():
 
 
 @pytest.mark.parametrize("fn_name,source", [("nb_glm_fused_launch", "nb_glm_fused.cu"),
-                                            ("nb_glm_stable_fwd_launch", "nb_glm_stable.cu"),
-                                            ("nb_glm_stable_bwd_launch", "nb_glm_stable.cu")])
+                                            ("nb_glm_stable_launch", "nb_glm_stable.cu")])
 def test_k3_k5_launch_signatures_match_source(fn_name, source):
-    """_SIGNATURES of K3-K5's C functions against their sources."""
+    """_SIGNATURES of K3-K5's C functions (K4 and K5 share one, by
+    want_grads) against their sources."""
     params = re.search(rf'extern "C" int {fn_name}\(([^)]*)\)',
                        (_CSRC / source).read_text()).group(1)
     kinds = [nb_kernel._P if "void*" in p else nb_kernel._I for p in params.split(",")]

@@ -239,10 +239,35 @@ def test_k4_plain_version_matches_pallas_forward_unaligned():
         np.testing.assert_allclose(float(v[b]), float(want), rtol=2e-4)
 
 
+@pytest.mark.parametrize("baseline", [False, True], ids=["plain", "baseline-ignored"])
+def test_stable_entry_under_grad_is_k5s_plain_version(baseline):
+    """Under grad `nb_glm_likelihood` returns, in one pass (K5's route on CPU
+    tensors), exactly stable_likelihood's value and likelihood_grads'
+    gradients (float64), scaled by the cotangent; under no_grad the same
+    value (K4's route)."""
+    jdata, jdims, alpha, log_phi = _case(seed=9, B=3, masked_gene=5, baseline=baseline)
+    tdata, _ = model_from_arrays(jdata, jdims, dtype=torch.float64)
+    a = torch.as_tensor(alpha).requires_grad_(True)
+    p = torch.as_tensor(log_phi).requires_grad_(True)
+    w = torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64)
+    value = nb_kernel.nb_glm_likelihood(tdata, a, p)
+    (w * value).sum().backward()
+    a0, p0 = a.detach(), p.detach()
+    with torch.no_grad():
+        v_only = nb_kernel.nb_glm_likelihood(tdata, a0, p0)
+    want = nb_model.stable_likelihood(tdata, a0, p0)
+    da, dl = nb_grad.likelihood_grads(tdata.X, tdata.exposure_rate, tdata.counts,
+                                      tdata.like_mask, a0, p0)
+    assert torch.equal(value.detach(), want) and torch.equal(v_only, want)
+    assert torch.equal(a.grad, w[:, None, None] * da) and torch.equal(p.grad, w[:, None] * dl)
+    assert torch.all(a.grad[:, :, 5] == 0) and torch.all(p.grad[:, 5] == 0)
+
+
 def test_k5_plain_version_matches_pallas_backward_and_masks():
-    """likelihood_grads (the K4/K5 entry's backward on CPU tensors) ==
-    _bwd_kernel (interpret): rtol 3e-3, atol 3e-2 (test_nb_kernel.py:80-94);
-    a fully masked gene gets exactly zero gradients (:97-110)."""
+    """likelihood_grads (the gradients of the K4/K5 entry's K5 route on CPU
+    tensors) == _bwd_kernel (interpret): rtol 3e-3, atol 3e-2
+    (test_nb_kernel.py:80-94); a fully masked gene gets exactly zero
+    gradients (:97-110)."""
     j32, tdata, a32, l32 = _f32_case(S=8, G=64, C=3, seed=1, masked_gene=3)
     a = torch.as_tensor(a32).requires_grad_(True)
     p = torch.as_tensor(l32).requires_grad_(True)
