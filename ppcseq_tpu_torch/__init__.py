@@ -1,11 +1,12 @@
 """ppcseq_tpu_torch — the PyTorch + CUDA port of ppcseq_tpu.
 
 Posterior-predictive-check outlier detection for bulk RNA-seq: the
-hierarchical negative-binomial GLM fitted by meanfield ADVI or jittered
-HMC, on-device posterior-predictive credible intervals, and the two-pass
-truncation-refit procedure, with the model's likelihood as hand-written
-CUDA kernels for Hopper (csrc/*.cu, wrapped in ops/nb_kernel.py). ppcseq_tpu (JAX) is the reference it is
-tested against; this package imports no JAX. Every entry point runs on
+hierarchical negative-binomial GLM fitted by meanfield ADVI, jittered
+HMC (optionally with ChEES trajectory adaptation) or NUTS, on-device
+posterior-predictive credible intervals, and the two-pass truncation-refit
+procedure, with the model's likelihood as hand-written CUDA kernels for
+Hopper (csrc/*.cu, wrapped in ops/nb_kernel.py). ppcseq_tpu (JAX) is the
+reference it is tested against; this package imports no JAX. Every entry point runs on
 the card (`device="cuda"`) unless the caller passes another device.
 """
 
@@ -25,9 +26,9 @@ def __getattr__(name):
 
         return run_hmc
     if name == "run_nuts":
-        from ppcseq_tpu_torch.pipeline.identify import _not_ported
+        from ppcseq_tpu_torch.infer.nuts import run_nuts
 
-        raise _not_ported("run_nuts", 10)
+        return run_nuts
     if name in ("fit_advi", "vb_iterative"):
         from ppcseq_tpu_torch.infer import advi
 

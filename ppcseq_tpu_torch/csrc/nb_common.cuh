@@ -259,7 +259,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // The value of a one-launch kernel. Every block has written its double
 // partial[b, blockIdx.x] for its rows b, each writer followed by a
 // __threadfence(); the last block to finish (an atomicAdd ticket) sums
-// partial[b, 0..n_tiles) into value[b] in double and a fixed order, so the
+// partial[b, 0..n_tiles) into the double value[b] in a fixed order, so the
 // value is bitwise reproducible: up to 64 tiles one thread per b sums them
 // in index order (all b at once); beyond, one warp per b, lanes taking a
 // fixed strided share and a fixed shuffle tree combining them. It then sets
@@ -267,7 +267,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // whole warps.
 __device__ __forceinline__ void last_block_sums_partials(const double* __restrict__ partial,
                                                          int n_tiles, int B,
-                                                         float* __restrict__ value,
+                                                         double* __restrict__ value,
                                                          unsigned* __restrict__ ticket) {
   __shared__ bool last;
   __syncthreads();
@@ -280,7 +280,7 @@ __device__ __forceinline__ void last_block_sums_partials(const double* __restric
       double s = 0.0;
 #pragma unroll 8
       for (int j = 0; j < n_tiles; ++j) s += __ldcg(&partial[(size_t)b * n_tiles + j]);
-      value[b] = (float)s;
+      value[b] = s;
     }
     if (threadIdx.x == 0) atomicExch(ticket, 0u);
     return;
@@ -291,7 +291,7 @@ __device__ __forceinline__ void last_block_sums_partials(const double* __restric
     for (int j = lane; j < n_tiles; j += 32) s += __ldcg(&partial[(size_t)b * n_tiles + j]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) value[b] = (float)s;
+    if (lane == 0) value[b] = s;
   }
   if (threadIdx.x == 0) atomicExch(ticket, 0u);
 }

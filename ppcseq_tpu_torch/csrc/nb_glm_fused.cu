@@ -153,7 +153,7 @@ extern "C" int nb_glm_fused_launch(const void* X, const void* counts, const void
                   static_cast<const float*>(d0),     static_cast<const float*>(alpha),
                   static_cast<const float*>(alpha0), static_cast<const float*>(log_phi),
                   static_cast<const float*>(sigma_raw0)};
-  const Outputs out{static_cast<double*>(partial), static_cast<float*>(value),
+  const Outputs out{static_cast<double*>(partial), static_cast<double*>(value),
                     static_cast<float*>(dalpha), static_cast<float*>(dlog_phi),
                     static_cast<unsigned*>(ticket)};
 #define NB_CASE(n)                                                                         \

@@ -118,7 +118,7 @@ extern "C" int nb_glm_stable_launch(const void* X, const void* exposure, const v
                   nullptr,                             static_cast<const float*>(alpha),
                   nullptr,                             static_cast<const float*>(log_phi),
                   nullptr};
-  const Outputs out{static_cast<double*>(partial), static_cast<float*>(value),
+  const Outputs out{static_cast<double*>(partial), static_cast<double*>(value),
                     static_cast<float*>(dalpha), static_cast<float*>(dlog_phi),
                     static_cast<unsigned*>(ticket)};
 #define NB_CASE(n)                                                                            \

@@ -55,7 +55,7 @@ struct Inputs {
 };
 struct Outputs {
   double* partial;   // [B, n_tiles] scratch
-  float* value;      // [B]
+  double* value;     // [B]
   float* dalpha;     // [B, C, G] (GRADS)
   float* dlog_phi;   // [B, G] (GRADS)
   unsigned* ticket;  // zeroed; left at 0

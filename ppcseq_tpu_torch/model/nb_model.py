@@ -248,7 +248,7 @@ def stable_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tenso
     alpha[B, C, G], log_phi[B, G] -> [B]. The plain version of K4."""
     eta = data.exposure_rate[:, None] + torch.matmul(data.X, alpha)  # [B, S, G]
     pts = nb2_log_lpmf_stable(data.counts, eta, log_phi.unsqueeze(1))
-    return torch.sum(data.like_mask * pts, dim=(1, 2))
+    return torch.sum(data.like_mask * pts, dim=(1, 2), dtype=torch.float64)
 
 
 def masked_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
@@ -296,7 +296,7 @@ def delta_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor
 
     part1 = nb2_part1(y, phi.expand_as(dlo), log_phi_c.expand_as(dlo))
     pts = part1 - phi_sp - y * inc_neg - data.y_sp0
-    return torch.sum(data.like_mask * pts, dim=(1, 2))
+    return torch.sum(data.like_mask * pts, dim=(1, 2), dtype=torch.float64)
 
 
 def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
@@ -304,63 +304,67 @@ def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
     log_phi[B, G] -> [B] (ground truth of the kernel tests; nb_kernel.py:
     217-220 of the JAX package)."""
     eta = exposure[:, None] + torch.matmul(X, alpha)
-    return torch.sum(mask * nb2_log_lpmf(counts, eta, log_phi.unsqueeze(1)), dim=(1, 2))
+    return torch.sum(mask * nb2_log_lpmf(counts, eta, log_phi.unsqueeze(1)), dim=(1, 2),
+                     dtype=torch.float64)
 
 
 def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims, *,
               likelihood_fn=None) -> torch.Tensor:
     """Unnormalized log posterior in unconstrained space: theta[B, D] -> [B].
 
-    `likelihood_fn(data, alpha[B, C, G], log_phi[B, G]) -> [B]` picks the
-    likelihood; None takes the default route, nb_kernel.nb_glm_likelihood_fast.
+    The terms are evaluated in theta's dtype and summed in float64, so the
+    result is float64 whatever theta's dtype: at -3e7 a float32 sum would
+    round energy differences to nats. `likelihood_fn(data, alpha[B, C, G],
+    log_phi[B, G]) -> [B]` picks the likelihood; None takes the default
+    route, nb_kernel.nb_glm_likelihood_fast.
     """
     params, log_jac = unpack(theta, dims)
     gm = data.gene_mask
     col = lambda v: v.unsqueeze(-1)  # noqa: E731  [B] -> [B, 1] against [B, G]
+    f64 = torch.float64
 
-    lp = log_jac
+    def total(x, dim=-1):
+        return torch.sum(x, dim=dim, dtype=f64)
+
+    lp = log_jac.to(f64)
     # Hyperpriors (stan:210-216)
-    lp = lp + normal_lpdf(params["lambda_mu"], LAMBDA_MU_MU, 2.0)
-    lp = lp + normal_lpdf(params["lambda_sigma"], 0.0, 2.0)
-    lp = lp + normal_lpdf(params["lambda_skew"], 0.0, 1.0)
-    lp = lp + normal_lpdf(params["sigma_intercept"], 0.0, 2.0)
-    lp = lp + normal_lpdf(params["sigma_slope"], 0.0, 2.0)
-    lp = lp + normal_lpdf(params["sigma_sigma"], 0.0, 2.0)
+    for name, loc, scale in (("lambda_mu", LAMBDA_MU_MU, 2.0), ("lambda_sigma", 0.0, 2.0),
+                             ("lambda_skew", 0.0, 1.0), ("sigma_intercept", 0.0, 2.0),
+                             ("sigma_slope", 0.0, 2.0), ("sigma_sigma", 0.0, 2.0)):
+        lp = lp + normal_lpdf(params[name], loc, scale).to(f64)
 
     # Gene-wise priors, with the double lambda_mu_mu shift (stan:219)
-    lp = lp + torch.sum(
+    lp = lp + total(
         gm * skew_normal_lpdf(
             params["intercept"],
             col(params["lambda_mu"] + LAMBDA_MU_MU),
             col(params["lambda_sigma"]),
             col(params["lambda_skew"]),
-        ),
-        dim=-1,
+        )
     )
     # Mean-overdispersion trend (stan:223)
-    lp = lp + torch.sum(
+    lp = lp + total(
         gm * normal_lpdf(
             params["sigma_raw"],
             col(params["sigma_slope"]) * params["intercept"] + col(params["sigma_intercept"]),
             col(params["sigma_sigma"]),
-        ),
-        dim=-1,
+        )
     )
     if dims.C >= 2:
-        lp = lp + torch.sum(double_exponential_lpdf(params["alpha_sub_1"], 0.0, 1.0), dim=-1)
+        lp = lp + total(double_exponential_lpdf(params["alpha_sub_1"], 0.0, 1.0))
     if dims.C >= 3:
-        lp = lp + torch.sum(normal_lpdf(params["alpha_2"], 0.0, 2.5), dim=(-2, -1))
+        lp = lp + total(normal_lpdf(params["alpha_2"], 0.0, 2.5), dim=(-2, -1))
 
     # Pseudo-prior keeping padded-gene coordinates well-conditioned
     pad = 1.0 - gm
-    lp = lp + torch.sum(pad * normal_lpdf(params["intercept"], 0.0, 1.0), dim=-1)
-    lp = lp + torch.sum(pad * normal_lpdf(params["sigma_raw"], 0.0, 1.0), dim=-1)
+    lp = lp + total(pad * normal_lpdf(params["intercept"], 0.0, 1.0))
+    lp = lp + total(pad * normal_lpdf(params["sigma_raw"], 0.0, 1.0))
 
     # Likelihood (stan:97-115): log phi = -sigma_raw (stan:203)
     alpha = make_alpha(params, dims)
     if likelihood_fn is None:
         likelihood_fn = nb_kernel.nb_glm_likelihood_fast
-    return lp + likelihood_fn(data, alpha, -params["sigma_raw"])
+    return lp + likelihood_fn(data, alpha, -params["sigma_raw"]).to(f64)
 
 
 def make_log_density(data: ModelData, dims: ModelDims, likelihood_fn=None):
@@ -407,11 +411,13 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
 
 def extract_lambda_sigma_draws(thetas: torch.Tensor, data: ModelData, dims: ModelDims):
     """(lambda_log_param[n, S, n_check], sigma_raw[n, n_check]) from draws
-    thetas[n, D] (reference R/utilities.R:1373). X @ alpha is a plain
-    matmul; callers on CUDA keep TF32 off (see pipeline.identify)."""
+    thetas[n, D] (reference R/utilities.R:1373). X @ alpha is C explicit
+    multiply-adds, so no matmul setting (TF32 on CUDA) can round it."""
     params, _ = unpack(thetas, dims)
     alpha = make_alpha(params, dims)[..., : dims.n_check]  # [n, C, K]
-    lam = torch.matmul(data.X, alpha)  # [S, C] @ [n, C, K] -> [n, S, K]
+    lam = data.X[:, 0, None] * alpha[:, None, 0, :]  # [S, 1] * [n, 1, K] -> [n, S, K]
+    for c in range(1, dims.C):
+        lam = lam + data.X[:, c, None] * alpha[:, None, c, :]
     return lam, params["sigma_raw"][..., : dims.n_check]
 
 

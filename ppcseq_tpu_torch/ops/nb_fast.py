@@ -263,7 +263,7 @@ def glm_plain(X, exposure, counts, mask, alpha, log_phi, want_grads):
     sp_d, sp_nd, em = _softplus_pair(d)
     part1, phi_d = _part1_and_digamma(gt_b, dt, want_grads)
     pts = part1 - gt_b["phi"] * sp_d - dt["yf"] * sp_nd
-    value = torch.sum(torch.sum(mask * pts, dim=1), dim=1)
+    value = torch.sum(torch.sum(mask * pts, dim=1, dtype=torch.float64), dim=1)
     if not want_grads:
         return value
 
@@ -335,7 +335,7 @@ def glm_delta(
     part1, phi_d = _part1_and_digamma(gt_b, dt, want_grads)
     pts = part1 - phi_sp - dt["yf"] * inc_neg - y_sp0
     # reduce over S first, then G (the JAX module's order)
-    value = torch.sum(torch.sum(mask * pts, dim=1), dim=1)
+    value = torch.sum(torch.sum(mask * pts, dim=1, dtype=torch.float64), dim=1)
     if not want_grads:
         return value
 

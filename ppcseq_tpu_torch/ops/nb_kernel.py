@@ -11,7 +11,7 @@ ppcseq_tpu/ops/nb_kernel.py (built at first use by ops/_build.py):
 | K4 nb_glm_stable_fwd| _fwd_kernel     | nb_glm_stable.cu | nb_model.stable_likelihood     |
 | K5 nb_glm_stable_bwd| _bwd_kernel     | nb_glm_stable.cu | stable_likelihood + likelihood_grads |
 
-The entries, each `(data, alpha[B,C,G], log_phi[B,G]) -> value[B]` and
+The entries, each `(data, alpha[B,C,G], log_phi[B,G]) -> value[B]` (float64) and
 differentiable in alpha and log_phi, are the JAX package's:
 - `nb_glm_likelihood_fast`: K1 when the data carry a baseline, K2 when not.
   Value and gradients in one pass; under no_grad the value-only
@@ -151,7 +151,7 @@ def work(name, B, S, C, G, want_grads=True, shares=None):
     grads = want_grads and name != "nb_glm_stable_fwd"
     n = 4 * (2 * S * G + S * C + B * C * G + B * G)  # counts, mask, X, alpha, log_phi
     n += 4 * (S * G + C * G + G) if baseline else 4 * S  # d0, alpha0, sigma_raw0 | exposure
-    n += 4 * (B + (B * C * G + B * G) * grads)  # value, dalpha, dlog_phi
+    n += 8 * B + 4 * (B * C * G + B * G) * grads  # value (f64), dalpha, dlog_phi
     per_point, per_gene, per_datum = _ops_per_point(name, C, grads, sh)
     ops = B * S * G * per_point + B * G * per_gene + S * G * per_datum
     t_bytes, t_ops = n / HBM_BYTES_PER_S * 1e6, ops / FP32_OPS_PER_S * 1e6
@@ -337,7 +337,7 @@ def _one_launch_outputs(name, dev, B, S, C, G, want_grads):
     the outputs, the [B, n_tiles] double scratch and the stream's ticket."""
     lay = layout(name, B, S, C, G, want_grads)
     f32 = torch.float32
-    value = torch.empty((B,), dtype=f32, device=dev)
+    value = torch.empty((B,), dtype=torch.float64, device=dev)
     dalpha = dlog_phi = None
     if want_grads:
         dalpha = torch.empty((B, C, G), dtype=f32, device=dev)
@@ -480,8 +480,9 @@ def _stable(data, alpha, log_phi, want_grads):
 
 
 class _GradsInForward(torch.autograd.Function):
-    """Value and gradients from one pass (K1, K2, K3 or K5);
-    backward scales the stored gradients by grad_out[b]."""
+    """Value (float64) and gradients (the inputs' dtype) from one pass (K1,
+    K2, K3 or K5); backward scales the stored gradients by grad_out[b], cast
+    to their dtype."""
 
     @staticmethod
     def forward(ctx, alpha, log_phi, data, compute):
@@ -492,6 +493,7 @@ class _GradsInForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         dalpha, dlog_phi = ctx.saved_tensors
+        grad_out = grad_out.to(dalpha.dtype)
         return grad_out[:, None, None] * dalpha, grad_out[:, None] * dlog_phi, None, None
 
 

@@ -15,7 +15,7 @@ R/methods.R:74-367).
   5. merge into a per-transcript nested result (R/methods.R:344-365)
 
 The fits and the posterior-predictive simulation run on one explicit
-`device`; NUTS, ChEES, meshes and checkpoints are not ported yet.
+`device`; meshes and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +32,10 @@ import torch
 from ppcseq_tpu_torch.data import ingest
 from ppcseq_tpu_torch.formula.design import create_design_matrix, parse_formula
 from ppcseq_tpu_torch.infer.advi import advi_sample, fit_advi, vb_iterative
+from ppcseq_tpu_torch.infer.chains import chains_for_run, mcmc_iterations
 from ppcseq_tpu_torch.infer.diagnostics import summarize
 from ppcseq_tpu_torch.infer.hmc import run_hmc
+from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.norm.tmm import sample_scaling
 from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
@@ -98,16 +100,21 @@ def do_inference(
     pass_fit: bool = False,
     mcmc_sampler: str = "hmc",
     hmc_adapt_trajectory: bool = False,
+    cores: int | None = None,
     device="cuda",
     dtype=torch.float32,
 ) -> InferenceResult:
     """One fit + CI extraction + outlier annotation (reference
     R/utilities.R:1321-1547): VB, or with approximate_posterior_inference
-    False, jittered HMC from an ADVI warm start. `device` defaults to the
-    card and must exist (utils/device.resolve_device)."""
+    False, jittered HMC (ChEES with hmc_adapt_trajectory) or NUTS from an
+    ADVI warm start; NUTS takes its chain count from the draws and `cores`
+    (default os.cpu_count()). `device` defaults to the card and must exist
+    (utils/device.resolve_device)."""
     if not approximate_posterior_inference:
-        _check_sampler(mcmc_sampler, hmc_adapt_trajectory)
+        _check_sampler(mcmc_sampler)
     device = resolve_device(device)
+    if cores is None:
+        cores = os.cpu_count() or 1
     breadcrumb("executing do_inference")
     md = ingest.build_model_data(
         my_df, sample, transcript, abundance, do_check,
@@ -145,8 +152,9 @@ def do_inference(
         thetas = advi_sample(res, g_draws, draws_practical)
         fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
     else:
-        with timed("hmc fit"):
-            res, fit_info = _hmc_fit(logp, dims, init, draws_practical, g_fit, device, dtype)
+        with timed(f"{mcmc_sampler} fit"):
+            res, fit_info = _mcmc_fit(logp, dims, init, draws_practical, g_fit, device, dtype,
+                                      mcmc_sampler, hmc_adapt_trajectory, cores)
         thetas = res.draws.reshape(-1, dims.dim)
 
     return _finish_inference(
@@ -162,19 +170,16 @@ def do_inference(
     )
 
 
-def _check_sampler(mcmc_sampler: str, hmc_adapt_trajectory: bool) -> None:
-    if mcmc_sampler == "nuts":
-        raise _not_ported("mcmc_sampler='nuts'", 10)
-    if mcmc_sampler != "hmc":
+def _check_sampler(mcmc_sampler: str) -> None:
+    if mcmc_sampler not in ("hmc", "nuts"):
         raise ValueError(f"unknown mcmc_sampler {mcmc_sampler!r} (use 'hmc' or 'nuts')")
-    if hmc_adapt_trajectory:
-        raise _not_ported("hmc_adapt_trajectory=True (ChEES)", 9)
 
 
-def _hmc_fit(logp, dims, init, draws_practical, generator, device, dtype):
-    """ADVI warm start, then jittered HMC with the divergence-retry ladder
-    (identify.py:216-270, 296-309 of the JAX package). Returns the
-    HMCResult and the fit info."""
+def _mcmc_fit(logp, dims, init, draws_practical, generator, device, dtype, mcmc_sampler,
+              hmc_adapt_trajectory, cores):
+    """ADVI warm start, then jittered HMC (ChEES with hmc_adapt_trajectory)
+    with the divergence-retry ladder, or NUTS (identify.py:216-309 of the
+    JAX package). Returns the sampler's result and the fit info."""
     # a quick meanfield fit supplies the initial point and the diagonal mass
     warm = fit_advi(
         logp, dims.dim, generator,
@@ -182,36 +187,58 @@ def _hmc_fit(logp, dims, init, draws_practical, generator, device, dtype):
         eval_every=50, grad_samples=4, device=device, dtype=dtype,
     )
     inv_mass = torch.exp(2.0 * warm.log_sd)
-    breadcrumb("executing hmc fit")
-    chains = K.HMC_CHAINS
-    per_chain = int(np.ceil(draws_practical / chains))
-    # divergence-retry ladder (the MCMC analog of vb_iterative, reference
-    # R/utilities.R:246-278): tighten target accept if more than 2% of
-    # proposals diverge
-    for ta in (0.8, 0.95, 0.99):
-        res = run_hmc(
+    breadcrumb(f"executing {mcmc_sampler} fit")
+    if mcmc_sampler == "hmc":
+        chains = K.HMC_CHAINS
+        per_chain = int(np.ceil(draws_practical / chains))
+        # divergence-retry ladder (the MCMC analog of vb_iterative, reference
+        # R/utilities.R:246-278): tighten target accept if more than 2% of
+        # proposals diverge
+        for ta in (0.8, 0.95, 0.99):
+            res = run_hmc(
+                logp, dims.dim, generator,
+                num_chains=chains,
+                num_warmup=K.HMC_WARMUP,
+                num_draws=per_chain,
+                num_leapfrog=K.HMC_LEAPFROG,
+                target_accept=ta,
+                init_theta=warm.mean,
+                inv_mass=inv_mass,
+                adapt_trajectory=hmc_adapt_trajectory,
+                device=device,
+                dtype=dtype,
+            )
+            if res.divergences.sum() <= 0.02 * chains * per_chain:
+                break
+            print(f"ppcseq says: {int(res.divergences.sum())} divergent "
+                  f"transitions at target_accept={ta}; retrying tighter")
+        fit_info = {
+            "method": "hmc",
+            "chains": chains,
+            "divergences": res.divergences.tolist(),
+            "step_size": res.step_size,
+            "target_accept": ta,
+        }
+        if res.trajectory_length is not None:
+            fit_info["trajectory_length"] = res.trajectory_length
+    else:
+        chains = chains_for_run(draws_practical, cores)
+        res = run_nuts(
             logp, dims.dim, generator,
             num_chains=chains,
-            num_warmup=K.HMC_WARMUP,
-            num_draws=per_chain,
-            num_leapfrog=K.HMC_LEAPFROG,
-            target_accept=ta,
+            num_warmup=K.MCMC_WARMUP,
+            num_draws=mcmc_iterations(draws_practical, chains),
             init_theta=warm.mean,
-            inv_mass=inv_mass,
+            inv_mass_init=inv_mass,
             device=device,
             dtype=dtype,
         )
-        if res.divergences.sum() <= 0.02 * chains * per_chain:
-            break
-        print(f"ppcseq says: {int(res.divergences.sum())} divergent "
-              f"transitions at target_accept={ta}; retrying tighter")
-    fit_info = {
-        "method": "hmc",
-        "chains": chains,
-        "divergences": res.divergences.tolist(),
-        "step_size": res.step_size,
-        "target_accept": ta,
-    }
+        fit_info = {
+            "method": "nuts",
+            "chains": chains,
+            "divergences": res.divergences.tolist(),
+            "step_size": res.step_size.tolist(),
+        }
     # convergence diagnostics on the parameters that drive the calls (slope
     # block + the 6 hyperparameters); only these columns leave the device
     if res.draws.shape[1] >= 4:
@@ -325,27 +352,26 @@ def identify_outliers(
     [transcript, sample_wise_data, ppc_samples_failed,
     tot_deleterious_outliers*]. `device` takes the place of the JAX
     package's `mesh`: the fits and the CI simulation run there (float32 on
-    CUDA; `dtype` is honoured on the CPU). `cores` is accepted for API
-    parity and unused. approximate_posterior_inference=False runs the
-    jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains, ADVI warm
-    start). `mcmc_sampler="nuts"`, `hmc_adapt_trajectory=True`, `mesh`,
-    `checkpoint_dir`, `additional_parameters_to_save` and
-    `save_generated_quantities` raise NotImplementedError.
+    CUDA; `dtype` is honoured on the CPU). approximate_posterior_inference=
+    False runs the jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains;
+    ChEES trajectory adaptation with `hmc_adapt_trajectory=True`) or NUTS
+    (`mcmc_sampler="nuts"`, chains from the draw count and `cores`, default
+    os.cpu_count()), each from an ADVI warm start. `mesh`, `checkpoint_dir`,
+    `additional_parameters_to_save` and `save_generated_quantities` raise
+    NotImplementedError.
     """
     if not approximate_posterior_inference:
-        _check_sampler(mcmc_sampler, hmc_adapt_trajectory)
+        _check_sampler(mcmc_sampler)
     if mesh is not None:
-        raise _not_ported("mesh (pass device= instead)", 12)
+        raise _not_ported("mesh (pass device= instead)", 6)
     if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir", 11)
+        raise _not_ported("checkpoint_dir", 5)
     if additional_parameters_to_save:
-        raise _not_ported("additional_parameters_to_save", 11)
+        raise _not_ported("additional_parameters_to_save", 5)
     device = resolve_device(device)
     dtype = working_dtype(device, dtype)
-    if device.type == "cuda":
-        # X @ alpha in extract_lambda_sigma_draws must stay full float32:
-        # TF32 would move lambda_log by ~1e-3 relative
-        torch.backends.cuda.matmul.allow_tf32 = False
+    if cores is None:
+        cores = os.cpu_count() or 1
     if tol_rel_obj != 0.01:
         import warnings
 
@@ -377,7 +403,7 @@ def identify_outliers(
             "Variational Bayes does not support saving generated quantities, use sampling"
         )
     if save_generated_quantities:
-        raise _not_ported("save_generated_quantities", 11)
+        raise _not_ported("save_generated_quantities", 5)
     if not (0 <= percent_false_positive_genes <= 100) or np.isnan(percent_false_positive_genes):
         raise ValueError("percent_false_positive_genes must be between 0 and 100")
     if data[transcript].isna().any():
@@ -439,7 +465,7 @@ def identify_outliers(
         exposure_by_sample=exposure_by_sample,
         approximate_posterior_inference=approximate_posterior_inference,
         pass_fit=pass_fit, mcmc_sampler=mcmc_sampler,
-        hmc_adapt_trajectory=hmc_adapt_trajectory,
+        hmc_adapt_trajectory=hmc_adapt_trajectory, cores=cores,
         # the reference reuses the same seed for both passes
         # (R/methods.R:284, 340-341)
         seed=seed, device=device, dtype=dtype,

@@ -1,6 +1,7 @@
 """Synthetic cohort generation for scale testing (NumPy).
 
-A copy of `synthetic_cohort` from ppcseq_tpu/utils/synthetic.py: NB counts
+A copy of `synthetic_cohort` and `synthetic_tidy` from
+ppcseq_tpu/utils/synthetic.py: NB counts
 from the model's own generative process (hyperpriors -> gene-wise
 intercept/slope/overdispersion -> NB2 counts with per-sample exposure), at
 arbitrary scale — e.g. the 50k-gene x 100-sample benchmark cohort. The same
@@ -58,3 +59,37 @@ def synthetic_cohort(
         "outliers": list(zip(out_s.tolist(), out_g.tolist())),
     }
     return counts, X, exposure, truth
+
+
+def synthetic_tidy(
+    n_genes: int = 64,
+    n_samples: int = 8,
+    n_check: int = 3,
+    outlier_frac: float = 0.02,
+    seed: int = 0,
+):
+    """Tidy long-format table for `identify_outliers` (the bundled-dataset
+    shape: sample x transcript x count + covariate + significance + do_check),
+    generated by `synthetic_cohort`. Check genes get small p-values."""
+    import pandas as pd
+
+    counts, X, _exposure, _truth = synthetic_cohort(
+        n_genes=n_genes, n_samples=n_samples, n_check=n_check,
+        outlier_frac=outlier_frac, seed=seed,
+    )
+    S, G = counts.shape
+    samples = [f"s{i:03d}" for i in range(S)]
+    genes = [f"g{j:04d}" for j in range(G)]
+    rng = np.random.default_rng(seed + 1)
+    pvals = np.where(np.arange(G) < n_check, rng.uniform(1e-8, 1e-4, G), rng.uniform(0.2, 1.0, G))
+    df = pd.DataFrame(
+        {
+            "sample": np.repeat(samples, G),
+            "transcript": np.tile(genes, S),
+            "count": counts.reshape(-1),
+            "Label": np.repeat(np.where(X[:, 1] > 0, "High", "Low"), G),
+            "PValue": np.tile(pvals, S),
+            "do_check": np.tile(np.arange(G) < n_check, S),
+        }
+    )
+    return df

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import ppcseq_tpu_torch
-from ppcseq_tpu_torch.infer import advi, diagnostics, hmc
+from ppcseq_tpu_torch.infer import advi, diagnostics, hmc, nuts
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.pipeline import identify
 
@@ -26,6 +26,8 @@ _CALLS = {
                                                                   max_iter=100)),
     "run_hmc": (hmc.run_hmc, lambda: hmc.run_hmc(_gaussian, 2, torch.Generator(), num_chains=2,
                                                  num_warmup=1, num_draws=1, num_leapfrog=1)),
+    "run_nuts": (nuts.run_nuts, lambda: nuts.run_nuts(_gaussian, 2, torch.Generator(),
+                                                      num_chains=2, num_warmup=1, num_draws=1)),
     "prepare_data": (nb_model.prepare_data,
                      lambda: nb_model.prepare_data(np.ones((3, 2), dtype=np.int64),
                                                    np.ones((3, 1)), np.zeros(3), 1)),
@@ -52,7 +54,7 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
         call()
 
 
-@pytest.mark.parametrize("name,owner", [("run_hmc", hmc), ("fit_advi", advi),
+@pytest.mark.parametrize("name,owner", [("run_hmc", hmc), ("run_nuts", nuts), ("fit_advi", advi),
                                         ("vb_iterative", advi), ("split_rhat", diagnostics),
                                         ("ess", diagnostics)])
 def test_lazy_api_is_the_ports(name, owner):
@@ -62,7 +64,9 @@ def test_lazy_api_is_the_ports(name, owner):
 
 
 def test_unported_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ppcseq_tpu_torch.run_nuts  # noqa: B018
+    """run_nuts is the port's sampler now; what stays unported of it is the
+    sharded state, and an unknown name is an AttributeError."""
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ppcseq_tpu_torch.run_nuts(_gaussian, 2, torch.Generator(), mesh=object(), device="cpu")
     with pytest.raises(AttributeError, match="no_such_name"):
         ppcseq_tpu_torch.no_such_name  # noqa: B018

@@ -1,5 +1,6 @@
-"""The CUDA likelihood kernels against their plain torch versions, and a
-short HMC run through each likelihood route, on the card.
+"""The CUDA likelihood kernels against their plain torch versions, a short
+HMC run through each likelihood route, and short NUTS and ChEES runs
+through "fast", on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. They import
 no JAX, so the card can run them without the JAX package's test setup:
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from ppcseq_tpu_torch.infer.hmc import run_hmc
+from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.ops import nb, nb_fast, nb_grad, nb_kernel
 
@@ -137,6 +139,8 @@ def test_kernel_matches_plain_version(cuda_case, kernel):
     assert sum(nb_kernel.LAUNCHES.values()) == 1
     plain = _plain(data, alpha, log_phi, kernel)
     plain64 = _plain(_f64(data), alpha.double(), log_phi.double(), kernel)
+    assert kern[0].dtype == plain[0].dtype == torch.float64  # both sum into float64
+    assert kern[1].dtype == kern[2].dtype == torch.float32
     np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=2e-5)
     assert _grads_ok(kernel, kern[1:], plain[1:], plain64[1:])
     assert torch.all(kern[1][:, :, 11] == 0) and torch.all(kern[2][:, 11] == 0)
@@ -255,19 +259,23 @@ def _check_ragged(kernel, B, S, G):
     gene tile, a partial b-chunk, or is the row layout; the masked gene's
     gradients are 0; the value-only launch gives the same value.
 
-    K3's gradient: on these random inputs it is 1.2e-4 to 1.6e-3 (scaled)
-    from likelihood_grads, and _grads_ok fails at four of the shapes, as it
-    did for the previous kernel design (PERF.md section 7 has the
-    readings). It is held strictly (< 1e-4) against the plain formulas at
-    its own d (_k3_grads_at_its_d), and against likelihood_grads in
-    float32 and in float64 at tests/test_nb_kernel.py's tolerance for the
-    fused kernel (_GRAD_FALLBACK's rtol, atol)."""
+    K3's gradient, the decision: its strict limit (< 1e-4) is taken
+    against the plain formulas at K3's own d = d0 + dlo
+    (_k3_grads_at_its_d), because the plain version likelihood_grads takes
+    d = eta - log_phi and the two d differ by float32 rounding times the
+    O(phi) sensitivity of near-Poisson genes: 1.2e-4 to 1.6e-3 (scaled) on
+    these inputs, where _grads_ok fails at four of the shapes (PERF.md
+    section 7 has the readings). Against likelihood_grads, in float32 and
+    in float64, K3 is held at tests/test_nb_kernel.py's tolerance for the
+    fused kernel (_GRAD_FALLBACK's rtol, atol). Every value, K3's too,
+    is float64 and meets rtol 2e-5 against its plain version."""
     data, alpha, log_phi = _ragged_case(B, S, G)
     lay = nb_kernel.layout(kernel, B, S, 2, G)
     if S == 601:
         assert lay["n_chunks"] > 1 and G % lay["T"] != 0
     assert (lay["SY"] == 0) == (B == 33 and kernel not in _ALWAYS_TILED)
     value_only = _value_only(data, alpha, log_phi, kernel)
+    assert value_only.dtype == torch.float64
     if kernel == "nb_glm_stable_fwd":
         want = nb_model.stable_likelihood(data, alpha, log_phi)
         np.testing.assert_allclose(value_only.cpu().numpy(), want.cpu().numpy(), rtol=2e-5)
@@ -520,3 +528,61 @@ def test_short_hmc_run_on_the_card(name):
     assert launched == {"plain": set(), "fast": {"nb_glm_delta"},
                         "pallas": {"nb_glm_stable_bwd"},
                         "pallas_fused": {"nb_glm_fused"}}[name]
+
+
+def _fast_case(dev):
+    """The small NB model of test_short_hmc_run_on_the_card with a baseline
+    (so "fast" is K1), and a log density through "fast" that records the
+    batch of every likelihood call."""
+    rng = np.random.default_rng(1)
+    S, G = 8, 24
+    counts = rng.poisson(np.exp(rng.normal(4.0, 1.0, size=(1, G))), size=(S, G))
+    X = np.column_stack([np.ones(S), (np.arange(S) >= S // 2).astype(float)])
+    data, dims = nb_model.prepare_data(counts, X, rng.normal(0.0, 0.1, S), 4, device=dev)
+    data = nb_model.with_baseline(data, dims)
+    batches = []
+
+    def likelihood(d, alpha, log_phi):
+        batches.append(alpha.shape[0])
+        return nb_kernel.nb_glm_likelihood_fast(d, alpha, log_phi)
+
+    def logp(theta, d):
+        return nb_model.log_joint(theta, d, dims, likelihood_fn=likelihood)
+
+    return data, dims, logp, batches
+
+
+def test_short_nuts_run_launches_k1_at_every_gradient():
+    """NUTS through "fast" on the card: one K1 launch per batched gradient
+    evaluation (num_evals), each over all the chains (B = chains), a frozen
+    chain included; the value is float64 and the draws finite."""
+    _needs_card()
+    dev = torch.device("cuda")
+    data, dims, logp, batches = _fast_case(dev)
+    nb_kernel.reset_launches()
+    res = run_nuts(logp, dims.dim, torch.Generator(device=dev).manual_seed(0), data=data,
+                   num_chains=3, num_warmup=20, num_draws=10, max_depth=6,
+                   init_theta=nb_model.smart_init(data, dims), device=dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(res.draws).all() and res.draws.shape == (3, 10, dims.dim)
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": res.num_evals}
+    assert batches == [3] * res.num_evals
+    assert res.lockstep_leapfrog >= res.num_leapfrog > 0
+
+
+def test_short_chees_run_launches_k1_at_every_gradient():
+    """ChEES through "fast" on the card: one K1 launch per gradient of the
+    chain batch (the start, then every leapfrog), B = chains."""
+    _needs_card()
+    dev = torch.device("cuda")
+    data, dims, logp, batches = _fast_case(dev)
+    nb_kernel.reset_launches()
+    res = run_hmc(logp, dims.dim, torch.Generator(device=dev).manual_seed(0), data=data,
+                  num_chains=16, num_warmup=10, num_draws=5, num_leapfrog=8,
+                  adapt_trajectory=True, init_theta=nb_model.smart_init(data, dims),
+                  device=dev)
+    torch.cuda.synchronize()
+    assert torch.isfinite(res.draws).all() and res.trajectory_length > 0
+    evals = 1 + res.num_leapfrog // 16
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": evals}
+    assert batches == [16] * evals

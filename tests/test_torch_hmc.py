@@ -1,15 +1,21 @@
 """The port's jittered HMC (ppcseq_tpu_torch.infer.hmc): its update rules
 against a NumPy transcription of ppcseq_tpu/infer/hmc.py:108-146 at fixed
-inputs (float64, rtol 1e-12), and its statistics as tests/test_hmc.py
-checks them (correlated-Gaussian moments; the NB model's HMC means against
-ADVI)."""
+inputs (float64, rtol 1e-12), the ChEES/SNAPER warmup replayed from JAX's
+random keys against ppcseq_tpu.infer.hmc._build_chees_warmup (float64,
+rtol 1e-9), and its statistics as tests/test_hmc.py checks them
+(correlated-Gaussian moments, ChEES on a correlated Gaussian and on slow
+directions; the NB model's HMC means against ADVI)."""
 
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ppcseq_tpu.infer import hmc as jhmc
+from ppcseq_tpu_torch.infer import hmc
 from ppcseq_tpu_torch.infer.advi import fit_advi
 from ppcseq_tpu_torch.infer.diagnostics import summarize
 from ppcseq_tpu_torch.infer.hmc import dual_average, leapfrog, logp_and_grad, run_hmc
@@ -137,8 +143,118 @@ def test_hmc_nb_model_agrees_with_advi():
 
 
 def test_hmc_refuses_what_is_not_ported():
+    """A mesh is refused, with or without ChEES; ChEES alone now runs."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, adapt_trajectory=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, mesh=object())
+    for kw in (dict(mesh=object()), dict(mesh=object(), adapt_trajectory=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
+            run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, device="cpu", **kw)
+    res = run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, num_chains=4, num_warmup=5, num_draws=3,
+                  num_leapfrog=8, adapt_trajectory=True, device="cpu", dtype=torch.float64)
+    assert res.trajectory_length > 0 and res.draws.shape == (4, 3, 2)
+
+
+def test_halton_seq_equals_jax():
+    for base in (2, 3):
+        np.testing.assert_array_equal(hmc._halton_seq(300, base), jhmc._halton_seq(300, base))
+    assert hmc._L_BUCKETS == jhmc._L_BUCKETS
+
+
+class _JaxKeys:
+    """The port's `draws` interface replaying the keys of JAX's ChEES
+    warmup: split(key, num_warmup) per draw (hmc.py:329), and per draw the
+    momentum and accept keys from split(key) (hmc.py:198)."""
+
+    def __init__(self, key, n):
+        self.keys = list(jax.random.split(key, n))
+
+    def momentum(self, shape):
+        k_mom, self.k_acc = jax.random.split(self.keys.pop(0))
+        return torch.as_tensor(np.array(jax.random.normal(k_mom, shape, jnp.float64)))
+
+    def uniform(self, n, what):
+        assert what == "accept"
+        return torch.as_tensor(np.array(jax.random.uniform(self.k_acc, (n,), jnp.float64)))
+
+
+@pytest.mark.parametrize("L_cap", [16, 4], ids=["cap16", "cap4"])
+def test_chees_warmup_replays_jax(L_cap):
+    """8 chains, D = 8, 6 warmup draws, float64, from JAX's keys: the final
+    state, step size, trajectory length and leapfrog count equal
+    ppcseq_tpu.infer.hmc._build_chees_warmup's at rtol 1e-9 (at cap 4 the
+    log-T clip binds)."""
+    rng = np.random.default_rng(0)
+    D, C, W = 8, 8, 6
+    A = rng.normal(size=(D, D))
+    cov = A @ A.T / D + 0.5 * np.eye(D)
+    prec, mu = np.linalg.inv(cov), rng.normal(size=D)
+    pj, pt, mt = jnp.asarray(prec), torch.as_tensor(prec), torch.as_tensor(mu)
+    z0 = mu[None] + rng.normal(size=(C, D))
+    inv_mass = np.diag(cov).copy()
+    mu_da = math.log(10 * 0.05)
+    u = hmc._halton_seq(W)
+    key = jax.random.PRNGKey(4)
+
+    warm = jhmc._build_chees_warmup(lambda x: -0.5 * (x - mu) @ pj @ (x - mu), False, D, C, W,
+                                    L_cap, 0.8, jnp.float64)
+    jz, _, _, jeps, jT, jL = warm(None, jnp.asarray(z0), jnp.asarray(inv_mass),
+                                  jnp.asarray(mu_da), key, jnp.asarray(u))
+
+    def grad_fn(x):
+        return logp_and_grad(lambda y: -0.5 * torch.einsum("bi,ij,bj->b", y - mt, pt, y - mt), x)
+
+    z, _, _, eps, T, L = hmc._chees_warmup(grad_fn, torch.as_tensor(z0), torch.as_tensor(inv_mass),
+                                           mu_da, W, L_cap, 0.8, _JaxKeys(key, W),
+                                           torch.as_tensor(u))
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-9)
+    np.testing.assert_allclose([float(eps), float(T)], [float(jeps), float(jT)], rtol=1e-9)
+    assert L == int(jL)
+
+
+def _correlated_gaussian(seed):
+    D = 8
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(D, D))
+    cov = A @ A.T / D + np.eye(D) * 0.5
+    prec = torch.as_tensor(np.linalg.inv(cov))
+    mu = rng.normal(size=D)
+    mu_t = torch.as_tensor(mu)
+
+    def logp(x):
+        d = x - mu_t
+        return -0.5 * torch.einsum("bi,ij,bj->b", d, prec, d)
+
+    return logp, mu, cov
+
+
+def test_chees_adaptive_trajectory_gaussian():
+    """tests/test_hmc.py:37-63 on the port: adapt_trajectory=True finds a
+    good T on a correlated Gaussian."""
+    logp, mu, cov = _correlated_gaussian(5)
+    res = run_hmc(logp, 8, torch.Generator().manual_seed(1), num_chains=64, num_warmup=300,
+                  num_draws=400, num_leapfrog=64, adapt_trajectory=True,
+                  inv_mass=np.diag(cov).copy(), device="cpu", dtype=torch.float64)
+    assert res.trajectory_length is not None and res.trajectory_length > 0
+    assert res.divergences.sum() == 0
+    np.testing.assert_allclose(res.draws.reshape(-1, 8).numpy().mean(axis=0), mu, atol=0.1)
+    assert summarize(res.draws.numpy())["rhat_max"] < 1.05
+
+
+def test_snaper_targets_slow_directions():
+    """tests/test_hmc.py:66-92 on the port: 195 fast coordinates and 5 slow
+    ones (sd 10) under a unit mass; the SNAPER criterion must adapt T past
+    the fast scale, and the slow block must mix."""
+    D_fast, D_slow, slow_sd = 195, 5, 10.0
+    var = np.ones(D_fast + D_slow)
+    var[D_fast:] = slow_sd**2
+    prec = torch.as_tensor(1.0 / var)
+
+    def logp(x):
+        return -0.5 * torch.sum(x * x * prec, dim=1)
+
+    res = run_hmc(logp, D_fast + D_slow, torch.Generator().manual_seed(3), num_chains=64,
+                  num_warmup=300, num_draws=300, num_leapfrog=64, adapt_trajectory=True,
+                  device="cpu", dtype=torch.float64)
+    assert res.trajectory_length > 5.0, res.trajectory_length
+    assert summarize(res.draws[:, :, D_fast:].numpy())["rhat_max"] < 1.1
+    slow = res.draws.reshape(-1, D_fast + D_slow)[:, D_fast:].numpy()
+    np.testing.assert_allclose(slow.std(axis=0), slow_sd, rtol=0.25)

@@ -219,26 +219,27 @@ def test_layout_constants_match_source():
 _SG, _CG, _BCG, _BG = 21 * 515, 2 * 515, 2 * 515, 515
 _K1 = 4 * (3 * _SG + 21 * 2 + _BCG + _CG + _BG + 515)  # counts, mask, d0, X, alpha, alpha0, log_phi, sigma_raw0
 _K2 = 4 * (2 * _SG + 21 + 21 * 2 + _BCG + _BG)  # counts, mask, exposure, X, alpha, log_phi
-_OUT = 4 * (1 + _BCG + _BG)  # value, dalpha, dlog_phi
+_VALUE = 8  # value[B] is float64
+_OUT = _VALUE + 4 * (_BCG + _BG)  # value, dalpha, dlog_phi
 
 
 @pytest.mark.parametrize("name,grads,expected", [
-    ("nb_glm_delta", True, _K1 + _OUT), ("nb_glm_delta", False, _K1 + 4),
-    ("nb_glm_plain", True, _K2 + _OUT), ("nb_glm_plain", False, _K2 + 4),
-    ("nb_glm_fused", True, _K1 + _OUT), ("nb_glm_fused", False, _K1 + 4),
-    ("nb_glm_stable_fwd", True, _K2 + 4), ("nb_glm_stable_fwd", False, _K2 + 4),
-    ("nb_glm_stable_bwd", True, _K2 + _OUT), ("nb_glm_stable_bwd", False, _K2 + 4),
+    ("nb_glm_delta", True, _K1 + _OUT), ("nb_glm_delta", False, _K1 + _VALUE),
+    ("nb_glm_plain", True, _K2 + _OUT), ("nb_glm_plain", False, _K2 + _VALUE),
+    ("nb_glm_fused", True, _K1 + _OUT), ("nb_glm_fused", False, _K1 + _VALUE),
+    ("nb_glm_stable_fwd", True, _K2 + _VALUE), ("nb_glm_stable_fwd", False, _K2 + _VALUE),
+    ("nb_glm_stable_bwd", True, _K2 + _OUT), ("nb_glm_stable_bwd", False, _K2 + _VALUE),
 ])
 def test_work_bytes_by_hand(name, grads, expected):
     w = nb_kernel.work(name, 1, 21, 2, 515, want_grads=grads)
     assert w["bytes"] == expected
-    assert w["bytes"] == {("nb_glm_delta", True): 148_492, ("nb_glm_delta", False): 142_312,
-                          ("nb_glm_plain", True): 99_136, ("nb_glm_plain", False): 92_956,
-                          ("nb_glm_fused", True): 148_492, ("nb_glm_fused", False): 142_312,
-                          ("nb_glm_stable_fwd", True): 92_956,
-                          ("nb_glm_stable_fwd", False): 92_956,
-                          ("nb_glm_stable_bwd", True): 99_136,
-                          ("nb_glm_stable_bwd", False): 92_956}[(name, grads)]
+    assert w["bytes"] == {("nb_glm_delta", True): 148_496, ("nb_glm_delta", False): 142_316,
+                          ("nb_glm_plain", True): 99_140, ("nb_glm_plain", False): 92_960,
+                          ("nb_glm_fused", True): 148_496, ("nb_glm_fused", False): 142_316,
+                          ("nb_glm_stable_fwd", True): 92_960,
+                          ("nb_glm_stable_fwd", False): 92_960,
+                          ("nb_glm_stable_bwd", True): 99_140,
+                          ("nb_glm_stable_bwd", False): 92_960}[(name, grads)]
 
 
 @pytest.mark.parametrize("name", list(nb_kernel.KERNELS))

@@ -378,3 +378,34 @@ def test_launch_counts_are_per_kernel_and_untouched_on_cpu():
     assert set(nb_kernel.LAUNCHES) == {"nb_glm_delta", "nb_glm_plain", "nb_glm_fused",
                                        "nb_glm_stable_fwd", "nb_glm_stable_bwd"}
     assert all(v == 0 for v in nb_kernel.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("likelihood", ["fast", "plain"])
+def test_log_joint_sums_energy_differences_in_float64(likelihood):
+    """At S = 100, G = 5,000 the log joint is about -3.1e6, where float32
+    spaces its values 0.25 apart. Two thetas that differ in five genes'
+    intercepts: with float32 theta and data, log_joint returns float64 and
+    its difference agrees with the all-float64 evaluation to 1e-3 nats,
+    while the same values rounded to float32 are off by more than 1e-2
+    (0.045 here)."""
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    counts, X, exposure, _ = synthetic_cohort(5000, 100, n_check=100, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 100, device="cpu",
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    data64 = nb_model.with_baseline(nb_model.upload(data.host, "cpu", torch.float64), dims)
+    theta0 = nb_model.smart_init(data, dims).astype(np.float32)
+    theta1 = theta0.copy()
+    lo, _ = nb_model._offsets(dims)["intercept"]
+    theta1[lo + 200:lo + 205] += np.float32(2e-3)
+    theta = torch.as_tensor(np.stack([theta0, theta1]))
+    logp = nb_model.flat_logp(dims, likelihood)
+    with torch.no_grad():
+        lp = logp(theta, data)
+        want = logp(theta.double(), data64)
+    assert lp.dtype == torch.float64 and abs(float(lp[0])) > 3e6
+    delta_want = float(want[1] - want[0])
+    assert abs(float(lp[1] - lp[0]) - delta_want) < 1e-3
+    lp32 = lp.float()
+    assert abs(float(lp32[1] - lp32[0]) - delta_want) > 1e-2

@@ -89,7 +89,7 @@ def test_host_prep_equals_jax(sig_counts):
 
 
 def test_unported_options_raise(sig_counts):
-    for kw in (dict(approximate_posterior_inference=False, mcmc_sampler="nuts"),
+    for kw in (dict(approximate_posterior_inference=False, mcmc_sampler="nuts", mesh=object()),
                dict(mesh=object()),
                dict(checkpoint_dir="ckpt"), dict(additional_parameters_to_save=("sigma",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -112,7 +112,8 @@ def test_device_policy():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, ppcseq_tpu_torch, ppcseq_tpu_torch.utils.convert; "
+    code = ("import sys, ppcseq_tpu_torch, ppcseq_tpu_torch.utils.convert, "
+            "ppcseq_tpu_torch.infer.nuts, ppcseq_tpu_torch.infer.chains; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'ppcseq_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

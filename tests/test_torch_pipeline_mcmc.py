@@ -1,13 +1,14 @@
 """The port's MCMC branch of identify_outliers on the CPU: the reference's
-3-gene (0, 1, 0) calls through jittered HMC (as tests/test_pipeline_mcmc.py:
-42-51 runs them on the JAX package), and the options that are not ported
-yet raising NotImplementedError."""
+3-gene (0, 1, 0) calls through jittered HMC and through NUTS (as
+tests/test_pipeline_mcmc.py:42-58 runs them on the JAX package), and the
+options that are not ported yet raising NotImplementedError."""
 
 import pytest
 import torch
 
 from ppcseq_tpu_torch import identify_outliers, load_counts
 from ppcseq_tpu_torch.infer.hmc import HMCResult
+from ppcseq_tpu_torch.pipeline import identify
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,36 @@ def test_mcmc_hmc_pipeline(sig_counts):
     assert "vb_iterations" not in res.attrs
 
 
-@pytest.mark.parametrize("option", [dict(mcmc_sampler="nuts"), dict(hmc_adapt_trajectory=True),
+def test_mcmc_nuts_pipeline(sig_counts, monkeypatch):
+    """tests/test_pipeline_mcmc.py:54-58 on the port: NUTS from the ADVI
+    warm start, 3 chains (chains_for_run(1000, cores)) of 334 draws after
+    150 warmup, in both passes; the fit info names the sampler and carries
+    the convergence diagnostics."""
+    infos = []
+    fit = identify._mcmc_fit
+
+    def spy(*args, **kwargs):
+        res, info = fit(*args, **kwargs)
+        infos.append(info)
+        return res, info
+
+    monkeypatch.setattr(identify, "_mcmc_fit", spy)
+    res = identify_outliers(sig_counts, mcmc_sampler="nuts", **_COMMON)
+    assert dict(zip(res.symbol, res.tot_deleterious_outliers)) == {
+        "SLC16A12": 0, "CYP1A1": 1, "ART3": 0,
+    }
+    assert len(infos) == 2
+    for info in infos:
+        assert info["method"] == "nuts" and info["chains"] == 3
+        assert len(info["step_size"]) == 3 and sum(info["divergences"]) <= 0.02 * 3 * 334
+        assert info["rhat_max"] < 1.1 and info["ess_min"] > 0
+
+
+# The options nuts and adapt_trajectory run since they were ported (above,
+# and tests/test_torch_pipeline_extra.py); what stays refused of them is the
+# mesh that shards their chains or genes.
+@pytest.mark.parametrize("option", [dict(mcmc_sampler="nuts", mesh=object()),
+                                    dict(hmc_adapt_trajectory=True, mesh=object()),
                                     dict(save_generated_quantities=True)],
                          ids=["nuts", "adapt_trajectory", "generated_quantities"])
 def test_mcmc_options_not_ported_raise(sig_counts, option):
