@@ -12,7 +12,11 @@ so the exit code is non-zero):
              (128, 21, 515) on the bundled cohort (15 checked genes + 500
              controls) and (8, 100, 50000) on the synthetic scale cohort;
              K1 and K2 also value-only at (100, 21, 515) (the ELBO) and at
-             (1, 100, 600) (the 50k pipeline cohort's ADVI step).
+             (1, 100, 600) (the ADVI step of the 50k cohort's checked genes
+             + 500 controls); K1 at the command line's 50k batch shapes, the
+             ADVI step (1, 100, 50000) with gradients and the ELBO
+             (100, 100, 50000) value-only (its plain versions run in chunks
+             of rows of B there, to bound memory).
              Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4; for K3's
              gradients, where the plain version itself is further than
              1e-4 from its float64 evaluation, the tolerance of
@@ -53,13 +57,30 @@ so the exit code is non-zero):
              case on both VB CI paths and on the HMC, ChEES and NUTS
              branches (calls must be SLC16A12 0, CYP1A1 1, ART3 0), and the
              15-gene README configuration (CYP1A1 and LYZ must be called).
-Phase nuts and the e2e NUTS row run in two child processes of this script
-on the same card (`--child nuts`, `--child e2e-nuts`), started after phase
-kernel, beside the parent's phases hmc and e2e; the parent waits for them,
-echoes their rows and fails if either failed. Each path runs with the
-kernel launch counts of its process set to 0 just before it and read just
-after; every kernel of the path must have launched. Then the
-card's name and power limit, a JSON line describing the kernels (with
+  7. cli     the product surface: (1) the command line
+             (ppcseq_tpu_torch.cli.main) on scripts/bench_pipeline_scale.py's
+             50,000 x 100 synthetic cohort read from parquet (VB, the
+             approximated CI, 49,900 controls: the fit covers every gene)
+             with a checkpoint directory, then the same command again: the
+             cold run must give 100 finite rows and flag at least half of
+             the injected outlier cells, the resume must launch no kernel
+             and write byte-identical CSVs; each row has the wall, the
+             pipeline's stage times (utils/log), the peak device memory,
+             the K1 launches and the VB iterations of each pass. (2)
+             `python -m ppcseq_tpu_torch` in a subprocess on the 15-gene
+             README configuration with --json (and --plots where matplotlib
+             is installed): CYP1A1 and LYZ called, one PNG per transcript.
+             (3) the HMC branch on the 3-gene case with the exact CI,
+             save_generated_quantities and additional_parameters_to_save:
+             calls (0, 1, 0), a generated-quantities frame with values >= 0
+             on every point, sigma = exp(-sigma_raw).
+Phase nuts, the e2e NUTS row and phase cli run in three child processes of
+this script on the same card (`--child nuts`, `--child e2e-nuts`, `--child
+cli`), started after phase kernel, beside the parent's phases hmc and e2e;
+the parent waits for them, echoes their rows and fails if any failed. Each
+path runs with the kernel launch counts of its process set to 0 just before
+it and read just after; every kernel of the path must have launched. Then
+the card's name and power limit, a JSON line describing the kernels (with
 each kernel's launches on every path), and, last,
 {"ok": true, "device": {...}}.
 
@@ -204,12 +225,30 @@ def _kernel_case(counts, X, exposure, n_check, B, seed, device):
     return data, alpha, log_phi, masked_gene
 
 
+PLAIN_CHUNK_POINTS = 5e7  # (b, s, g) points per call of a plain version
+
+
+def _in_chunks(fn, a, p, rows):
+    """fn(alpha, log_phi) -> tuple over the leading B, `rows` rows of B at a
+    time (every output is per b)."""
+    import torch
+
+    if len(a) <= rows:
+        return fn(a, p)
+    parts = [fn(a[i:i + rows], p[i:i + rows]) for i in range(0, len(a), rows)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
 def _calls(data, alpha, log_phi, grads=True):
     """kernel name -> (kernel call, plain call), each returning
     (value,) or (value, dalpha, dlog_phi) for the given inputs. With
-    grads=False, K1 and K2 run their value-only instantiation."""
+    grads=False, K1 and K2 run their value-only instantiation. K1's and K2's
+    plain versions take at most PLAIN_CHUNK_POINTS points per call."""
     from ppcseq_tpu_torch.model import nb_model
     from ppcseq_tpu_torch.ops import nb_fast, nb_grad, nb_kernel
+
+    S, G = data.counts.shape
+    rows = max(1, int(PLAIN_CHUNK_POINTS // (S * G)))
 
     def tup(t):
         return t if isinstance(t, tuple) else (t,)
@@ -219,14 +258,14 @@ def _calls(data, alpha, log_phi, grads=True):
             "nb_glm_delta": (
                 lambda: tup(nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0,
                                                    p, d.sigma_raw0, want_grads=grads)),
-                lambda: tup(nb_fast.glm_delta(d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0,
-                                              d.d0, d.sp_d0, d.sig_neg_d0, d.y_sp0, a, p,
-                                              grads))),
+                lambda: _in_chunks(lambda a_, p_: tup(nb_fast.glm_delta(
+                    d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0, d.d0, d.sp_d0,
+                    d.sig_neg_d0, d.y_sp0, a_, p_, grads)), a, p, rows)),
             "nb_glm_plain": (
                 lambda: tup(nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask,
                                                    a, p, want_grads=grads)),
-                lambda: tup(nb_fast.glm_plain(d.X, d.exposure_rate, d.counts, d.like_mask, a, p,
-                                              grads))),
+                lambda: _in_chunks(lambda a_, p_: tup(nb_fast.glm_plain(
+                    d.X, d.exposure_rate, d.counts, d.like_mask, a_, p_, grads)), a, p, rows)),
             "nb_glm_fused": (
                 lambda: nb_kernel.launch_fused(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0, p,
                                                d.sigma_raw0, want_grads=True),
@@ -265,9 +304,12 @@ def phase_kernel(counts_df, device):
     # (B, cohort, kernels (None: all five), gradients): the ADVI step, the
     # 100-sample value-only ELBO and the bench HMC on the bundled cohort; the
     # ADVI step of the 50k x 100 pipeline cohort (its checked genes + 500
-    # controls); the scale HMC
+    # controls); the scale HMC; the ADVI step and the ELBO of the command
+    # line's 50k batch run (every gene in the fit)
+    z = (c50k, X50k, e50k, 100)
     cases = [(1, bundled, None, True), (100, bundled, k12, False), (128, bundled, None, True),
-             (1, (c600, X600, e600, 100), k12, True), (8, (c50k, X50k, e50k, 100), None, True)]
+             (1, (c600, X600, e600, 100), k12, True), (8, z, None, True),
+             (1, z, ["nb_glm_delta"], True), (100, z, ["nb_glm_delta"], False)]
 
     rows = []
     for B, (counts, X, exposure, n_check), names, grads in cases:
@@ -688,20 +730,216 @@ def phase_e2e(counts_df, device, nuts_only=False):
     return launches
 
 
+# scripts/bench_pipeline_scale.py's cohort and command: VB, the approximated
+# CI, every gene in the fit (100 checked + 49,900 controls)
+CLI_COHORT = dict(n_genes=50000, n_samples=100, n_check=100, outlier_frac=0.002, seed=0)
+_STAGE_DONE = re.compile(r"done (.+) \(([0-9.]+)s\)$")
+# the stages of utils/log that prepare the data on the host
+HOST_PREP = ("format input", "design matrix and scaling", "model data")
+
+
+def _cli_main(argv):
+    """ppcseq_tpu_torch.cli.main(argv) with the pipeline's stage breadcrumbs
+    (utils/log) captured and the printed summary dropped: (wall s, stage ->
+    [seconds of each time it ran])."""
+    import contextlib
+    import io
+
+    from ppcseq_tpu_torch import cli
+    from ppcseq_tpu_torch.utils import log
+
+    err = io.StringIO()
+    log.set_verbose(True)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"cli.main({argv}) failed")
+    finally:
+        log.set_verbose(False)
+    wall = time.perf_counter() - t0
+    stages: dict = {}
+    for line in err.getvalue().splitlines():
+        m = _STAGE_DONE.search(line)
+        if m:
+            stages.setdefault(m.group(1), []).append(float(m.group(2)))
+    return wall, stages
+
+
+def _cli_batch(device, tmp):
+    """(1) of phase cli: the 50k batch run from a parquet table, then its
+    resume from the checkpoint. Returns its K1 launches."""
+    import filecmp
+
+    import pandas as pd
+    import torch
+
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_tidy
+
+    t0 = time.perf_counter()
+    table = os.path.join(tmp, "cohort.parquet")
+    synthetic_tidy(**CLI_COHORT).to_parquet(table)
+    spiked = set(map(tuple, synthetic_cohort(**CLI_COHORT)[3]["outliers"]))
+    setup_s = time.perf_counter() - t0
+    ckpt = os.path.join(tmp, "checkpoint")
+
+    def argv(out):
+        return [table, "-o", out, "--formula", "~ Label", "--sample", "sample",
+                "--transcript", "transcript", "--abundance", "count", "--significance", "PValue",
+                "--do-check", "do_check",
+                "--negative-controls", str(CLI_COHORT["n_genes"] - CLI_COHORT["n_check"]),
+                "--seed", "42", "--checkpoint-dir", ckpt]
+
+    k1 = 0
+    outs = {}
+    torch.cuda.init()  # the peak-memory counters exist once CUDA is initialized
+    for run in ("cold", "resume"):
+        outs[run] = os.path.join(tmp, run)
+        torch.cuda.reset_peak_memory_stats(device)
+        (wall, stages), counts = _run_path(f"cli 50k {run}", lambda: _cli_main(argv(outs[run])),
+                                           ["nb_glm_delta"] if run == "cold" else [])
+        k1 += counts["nb_glm_delta"]
+        summary = pd.read_csv(os.path.join(outs[run], "result.csv"))
+        flat = pd.read_csv(os.path.join(outs[run], "sample_wise_data.csv"))
+        failed = flat[~flat["posterior_predictive_check_succeded"].astype(bool)]
+        flagged = {(int(s[1:]), int(t[1:])) for s, t in zip(failed["sample"], failed["transcript"])}
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)
+        host_prep = sum(sum(stages.get(k, [])) for k in HOST_PREP)
+        row = dict(run=run, config="scripts/bench_pipeline_scale.py via cli.main",
+                   genes=CLI_COHORT["n_genes"], samples=CLI_COHORT["n_samples"],
+                   checked=CLI_COHORT["n_check"], wall_s=wall, stages_s=stages,
+                   host_prep_s=host_prep, host_prep_share=host_prep / wall,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device),
+                   k1_launches=counts["nb_glm_delta"],
+                   vb_iterations=[meta[p].get("vb_iterations") for p in ("pass1", "pass2")],
+                   result_rows=len(summary), sample_rows=len(flat),
+                   bounds_finite=bool(np.isfinite(flat[[".lower", ".upper"]].to_numpy()).all()),
+                   deleterious_calls=int(summary["tot_deleterious_outliers"].sum()),
+                   ppc_failed=int(summary["ppc_samples_failed"].sum()),
+                   injected_outlier_cells=len(spiked), injected_cells_flagged=len(spiked & flagged))
+        if run == "cold":
+            row["table_setup_s"] = setup_s
+        else:
+            row["csvs_identical_to_cold"] = all(
+                filecmp.cmp(os.path.join(outs["cold"], name), os.path.join(outs[run], name),
+                            shallow=False)
+                for name in ("result.csv", "sample_wise_data.csv"))
+        print("phase cli " + json.dumps(row), flush=True)
+        if row["result_rows"] != CLI_COHORT["n_check"] or not row["bounds_finite"]:
+            raise AssertionError(f"cli 50k {run}: {row['result_rows']} rows, finite bounds "
+                                 f"{row['bounds_finite']}")
+        if 2 * row["injected_cells_flagged"] < len(spiked):
+            raise AssertionError(f"cli 50k {run}: {row['injected_cells_flagged']} of "
+                                 f"{len(spiked)} injected cells flagged")
+        if run == "resume" and (any(counts.values()) or not row["csvs_identical_to_cold"]):
+            raise AssertionError(f"cli 50k resume: launches {counts}, CSVs identical "
+                                 f"{row['csvs_identical_to_cold']}")
+    return k1
+
+
+def _cli_module(counts_df, tmp):
+    """(2) of phase cli: `python -m ppcseq_tpu_torch` in a subprocess on the
+    15-gene README configuration. Its kernel launches are counted in its own
+    process and not read here."""
+    import importlib.util
+    import subprocess
+
+    inp = os.path.join(tmp, "readme.csv")
+    counts_df.assign(is_significant=counts_df.FDR < 0.01).to_csv(inp, index=False)
+    out = os.path.join(tmp, "readme")
+    plots = importlib.util.find_spec("matplotlib") is not None
+    cmd = [sys.executable, "-m", "ppcseq_tpu_torch", inp, "-o", out, "--formula", "~ Label",
+           "--sample", "sample", "--transcript", "symbol", "--abundance", "value",
+           "--significance", "PValue", "--do-check", "is_significant",
+           "--percent-false-positive-genes", "5", "--seed", "42", "--json"]
+    if plots:
+        cmd.append("--plots")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ppcseq_tpu_torch failed:\n{proc.stderr[-4000:]}")
+    records = json.loads(proc.stdout.strip().splitlines()[-1])
+    calls = {r["symbol"]: r["tot_deleterious_outliers"] for r in records}
+    pngs = sorted(os.listdir(os.path.join(out, "plots"))) if plots else []
+    row = dict(run="python -m ppcseq_tpu_torch", config="scripts/readme_run.py", wall_s=wall,
+               plots=plots, pngs=len(pngs), transcripts=len(records), calls=calls)
+    print("phase cli " + json.dumps(row), flush=True)
+    if not (calls.get("CYP1A1", 0) >= 1 and calls.get("LYZ", 0) >= 1):
+        raise AssertionError(f"python -m ppcseq_tpu_torch: CYP1A1 and LYZ must be called: {calls}")
+    if plots and len(pngs) != len(records):
+        raise AssertionError(f"python -m ppcseq_tpu_torch: {len(pngs)} plots for "
+                             f"{len(records)} transcripts")
+
+
+def _cli_mcmc_product(counts_df, device):
+    """(3) of phase cli: the HMC branch with the exact CI, the generated
+    quantities and extra parameter draws. Returns its K1 launches."""
+    from ppcseq_tpu_torch import identify_outliers
+
+    three = counts_df.assign(is_significant=counts_df.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+    names = ("lambda_mu", "sigma_raw", "sigma")
+    t0 = time.perf_counter()
+    res, counts = _run_path("cli mcmc product", lambda: identify_outliers(
+        three, formula="~ Label", sample="sample", transcript="symbol", abundance="value",
+        significance="PValue", do_check="is_significant", percent_false_positive_genes=1,
+        how_many_negative_controls=50, approximate_posterior_inference=False,
+        mcmc_sampler="hmc", approximate_posterior_analysis=False,
+        save_generated_quantities=True, additional_parameters_to_save=names, seed=42,
+        device=device), ["nb_glm_delta"])
+    wall = time.perf_counter() - t0
+    calls = dict(zip(res.symbol, map(int, res.tot_deleterious_outliers)))
+    extra = res.attrs["additional_parameters"]
+    gq = [g for swd in res.sample_wise_data for g in swd["generated quantities"]]
+    n_draws = extra["sigma_raw"].shape[0]
+    row = dict(run="3-gene HMC exact, generated quantities", wall_s=wall, calls=calls,
+               launches=counts, saved={k: list(v.shape) for k, v in extra.items()},
+               gq_frames=len(gq), gq_draws=n_draws,
+               gq_ok=all(len(g) == n_draws and bool((g[".value"] >= 0).all()) for g in gq),
+               sigma_rel_err=float(np.max(np.abs(extra["sigma"] - np.exp(-extra["sigma_raw"]))
+                                          / np.exp(-extra["sigma_raw"]))))
+    print("phase cli " + json.dumps(row), flush=True)
+    if calls != {"SLC16A12": 0, "CYP1A1": 1, "ART3": 0}:
+        raise AssertionError(f"cli mcmc product: calls {calls} differ from (0, 1, 0)")
+    if not (row["gq_ok"] and len(gq) == sum(len(s) for s in res.sample_wise_data)):
+        raise AssertionError(f"cli mcmc product: generated quantities {row}")
+    if row["sigma_rel_err"] > 1e-5 or extra["sigma_raw"].shape[1] != 53:
+        raise AssertionError(f"cli mcmc product: saved parameters {row}")
+    return counts["nb_glm_delta"]
+
+
+def phase_cli(counts_df, device):
+    """The product surface: the 50k command-line batch run and its resume,
+    `python -m ppcseq_tpu_torch`, and the MCMC product options. Returns the
+    K1 launches of its in-process paths."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        k1 = _cli_batch(device, tmp)
+        _cli_module(counts_df, tmp)
+    return k1 + _cli_mcmc_product(counts_df, device)
+
+
 # The two NUTS paths take most of the run (each batched evaluation is some
-# 250 eager launches, and a leaf ends in a host sync): they run in child
-# processes of this script on the same card, started once phase kernel has
-# taken its device times alone, beside the parent's phases hmc and e2e.
+# 250 eager launches, and a leaf ends in a host sync), and phase cli's 50k
+# runs are mostly host work: they run in child processes of this script on
+# the same card, started once phase kernel has taken its device times alone,
+# beside the parent's phases hmc and e2e.
 E2E_NUTS = "3-gene NUTS approx"
+CHILDREN = ("nuts", "e2e-nuts", "cli")
 CHILD_RESULT = "chip_smoke child result "
 
 
 def _run_child(name, counts_df, device):
-    """`python3 chip_smoke.py --child nuts|e2e-nuts`: the phase, then one
+    """`python3 chip_smoke.py --child nuts|e2e-nuts|cli`: the phase, then one
     line with the launch counts of its paths and its K1 launches."""
     if name == "nuts":
         phase_nuts(counts_df, device)
         k1 = 0
+    elif name == "cli":
+        k1 = phase_cli(counts_df, device)
     else:
         k1 = phase_e2e(counts_df, device, nuts_only=True)
     print(CHILD_RESULT + json.dumps({"paths": PATH_LAUNCHES, "k1_launches": k1}), flush=True)
@@ -712,7 +950,7 @@ def _start_children():
     import tempfile
 
     children = {}
-    for name in ("nuts", "e2e-nuts"):
+    for name in CHILDREN:
         out = tempfile.TemporaryFile(mode="w+")
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", name],
                                 stdout=out, stderr=subprocess.STDOUT, text=True)

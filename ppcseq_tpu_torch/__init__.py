@@ -12,10 +12,15 @@ the card (`device="cuda"`) unless the caller passes another device.
 
 from ppcseq_tpu_torch.data.datasets import load_counts
 from ppcseq_tpu_torch.pipeline.identify import identify_outliers
+from ppcseq_tpu_torch.viz.plots import plot_credible_intervals
 
 __version__ = "0.1.0"
 
-__all__ = ["identify_outliers", "load_counts"]
+__all__ = [
+    "identify_outliers",
+    "plot_credible_intervals",
+    "load_counts",
+]
 
 
 def __getattr__(name):

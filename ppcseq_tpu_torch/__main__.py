@@ -1,0 +1,3 @@
+from ppcseq_tpu_torch.cli import main
+
+raise SystemExit(main())

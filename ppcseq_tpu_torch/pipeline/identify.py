@@ -15,14 +15,16 @@ R/methods.R:74-367).
   5. merge into a per-transcript nested result (R/methods.R:344-365)
 
 The fits and the posterior-predictive simulation run on one explicit
-`device`; meshes and checkpoints are not ported yet.
+`device`; meshes are not ported yet. Each pass can be checkpointed and
+resumed (utils/checkpoint.py).
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -39,6 +41,7 @@ from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.norm.tmm import sample_scaling
 from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
+from ppcseq_tpu_torch.utils import checkpoint as ckpt
 from ppcseq_tpu_torch.utils import constants as K
 from ppcseq_tpu_torch.utils.device import resolve_device, working_dtype
 from ppcseq_tpu_torch.utils.log import breadcrumb, timed
@@ -54,7 +57,12 @@ class InferenceResult:
     table: pd.DataFrame
     total_draws: int
     fit: Any = None
-    counts_rng: np.ndarray | None = None  # [n_draws, S, K] with pass_fit
+    # [n_draws, S, K] with pass_fit or save_generated_quantities
+    counts_rng: np.ndarray | None = None
+    # constrained draws by name (reference additional_parameters_to_save,
+    # R/methods.R:90)
+    additional_parameters: dict[str, np.ndarray] = field(default_factory=dict)
+    vb_iterations: int | None = None  # ADVI steps of a VB fit
 
 
 def _available_memory_bytes() -> float:
@@ -98,6 +106,8 @@ def do_inference(
     to_exclude: pd.DataFrame | None = None,
     truncation_compensation: float = 1.0,
     pass_fit: bool = False,
+    save_generated_quantities: bool = False,
+    additional_parameters_to_save: tuple[str, ...] = (),
     mcmc_sampler: str = "hmc",
     hmc_adapt_trajectory: bool = False,
     cores: int | None = None,
@@ -116,19 +126,20 @@ def do_inference(
     if cores is None:
         cores = os.cpu_count() or 1
     breadcrumb("executing do_inference")
-    md = ingest.build_model_data(
-        my_df, sample, transcript, abundance, do_check,
-        X, sorted_sample_names, exposure_by_sample,
-        exclude=to_exclude,
-    )
-    data, dims = nb_model.prepare_data(
-        md.counts, md.X, md.exposure_rate, md.n_check,
-        exclude_mask=md.exclude_mask, device=device, dtype=dtype,
-    )
-    # delta-form likelihood baseline (float32-smooth evaluation)
-    data = nb_model.with_baseline(data, dims)
+    with timed("model data"):
+        md = ingest.build_model_data(
+            my_df, sample, transcript, abundance, do_check,
+            X, sorted_sample_names, exposure_by_sample,
+            exclude=to_exclude,
+        )
+        data, dims = nb_model.prepare_data(
+            md.counts, md.X, md.exposure_rate, md.n_check,
+            exclude_mask=md.exclude_mask, device=device, dtype=dtype,
+        )
+        # delta-form likelihood baseline (float32-smooth evaluation)
+        data = nb_model.with_baseline(data, dims)
+        init = nb_model.smart_init(data, dims)
     logp = functools.partial(nb_model.flat_logp(dims), data=data)
-    init = nb_model.smart_init(data, dims)
 
     # If CI analysis is approximated, only ~1000 actual draws are needed
     # (reference R/utilities.R:1372)
@@ -151,13 +162,15 @@ def do_inference(
             )
         thetas = advi_sample(res, g_draws, draws_practical)
         fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
+        vb_iterations = res.iterations
     else:
         with timed(f"{mcmc_sampler} fit"):
             res, fit_info = _mcmc_fit(logp, dims, init, draws_practical, g_fit, device, dtype,
                                       mcmc_sampler, hmc_adapt_trajectory, cores)
         thetas = res.draws.reshape(-1, dims.dim)
+        vb_iterations = None
 
-    return _finish_inference(
+    result = _finish_inference(
         thetas=thetas, fit=res if pass_fit else fit_info,
         md=md, data=data, dims=dims, my_df=my_df, formula=formula,
         sample=sample, transcript=transcript, abundance=abundance,
@@ -166,8 +179,12 @@ def do_inference(
         adj_prob_theshold=adj_prob_theshold,
         how_many_posterior_draws=how_many_posterior_draws,
         truncation_compensation=truncation_compensation,
+        save_generated_quantities=save_generated_quantities,
+        additional_parameters_to_save=additional_parameters_to_save,
         pass_fit=pass_fit, generator=g_ci,
     )
+    result.vb_iterations = vb_iterations
+    return result
 
 
 def _check_sampler(mcmc_sampler: str) -> None:
@@ -253,13 +270,37 @@ def _finish_inference(
     *, thetas, fit, md, data, dims, my_df, formula, sample, transcript,
     abundance, do_check, X, sorted_sample_names,
     approximate_posterior_analysis, adj_prob_theshold,
-    how_many_posterior_draws, truncation_compensation, pass_fit, generator,
+    how_many_posterior_draws, truncation_compensation,
+    save_generated_quantities, additional_parameters_to_save, pass_fit, generator,
 ) -> InferenceResult:
     """CI extraction + PPC decision + outlier annotation, from posterior
     draws thetas[n, D] (the second half of reference R/utilities.R:1516-1544)."""
     lambda_log_draws, sigma_raw_draws = nb_model.extract_lambda_sigma_draws(thetas, data, dims)
     alpha1_draws = nb_model.extract_alpha_sub_1_draws(thetas, dims)
     slope_mean = torch.mean(alpha1_draws, dim=0).cpu().numpy()  # per checked gene
+
+    # Extra constrained-parameter draws the user asked to keep (reference
+    # additional_parameters_to_save, R/methods.R:90, R/utilities.R:1506-1510)
+    additional: dict[str, np.ndarray] = {}
+    if additional_parameters_to_save:
+        constrained = nb_model.unpack(thetas, dims)[0]
+        derived = {
+            "sigma": lambda: torch.exp(constrained["sigma_raw"]) ** -1,
+            "lambda_log_param": lambda: lambda_log_draws,
+            "counts_rng": lambda: None,  # handled by save_generated_quantities
+        }
+        for name in additional_parameters_to_save:
+            if name in constrained:
+                additional[name] = constrained[name].cpu().numpy()
+            elif name in derived:
+                v = derived[name]()
+                if v is not None:
+                    additional[name] = v.cpu().numpy()
+            else:
+                raise ValueError(
+                    f"unknown parameter {name!r}; available: "
+                    f"{sorted(constrained.keys() | derived.keys())}"
+                )
 
     counts_rng = None
     if approximate_posterior_analysis:
@@ -270,11 +311,13 @@ def _finish_inference(
                 truncation_compensation,
             )
     else:
-        # the simulated draws reach the host only with pass_fit
+        # the simulated draws reach the host only with pass_fit or
+        # save_generated_quantities
         with timed("CI extraction (exact)"):
             ci, counts_rng = exact_ci(
                 generator, lambda_log_draws, sigma_raw_draws, data.exposure_rate,
-                adj_prob_theshold, truncation_compensation, return_draws=pass_fit,
+                adj_prob_theshold, truncation_compensation,
+                return_draws=save_generated_quantities or pass_fit,
             )
 
     # Assemble the per-(S, checked G) table
@@ -311,8 +354,19 @@ def _finish_inference(
             check_df["is higher than mean"].to_numpy() == is_group_high
         )
 
+    if save_generated_quantities:
+        if counts_rng is None:
+            raise ValueError("generated quantities require the exact CI path")
+        gq = [
+            pd.DataFrame({".draw": np.arange(counts_rng.shape[0]) + 1,
+                          ".value": counts_rng[:, s, g]})
+            for s, g in zip(s_idx, g_idx)
+        ]
+        check_df["generated quantities"] = gq
+
     total_draws = int(dims.S * nc * how_many_posterior_draws)
-    return InferenceResult(table=check_df, total_draws=total_draws, fit=fit, counts_rng=counts_rng)
+    return InferenceResult(table=check_df, total_draws=total_draws, fit=fit,
+                           counts_rng=counts_rng, additional_parameters=additional)
 
 
 def identify_outliers(
@@ -356,18 +410,18 @@ def identify_outliers(
     False runs the jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains;
     ChEES trajectory adaptation with `hmc_adapt_trajectory=True`) or NUTS
     (`mcmc_sampler="nuts"`, chains from the draw count and `cores`, default
-    os.cpu_count()), each from an ADVI warm start. `mesh`, `checkpoint_dir`,
-    `additional_parameters_to_save` and `save_generated_quantities` raise
-    NotImplementedError.
+    os.cpu_count()), each from an ADVI warm start. `checkpoint_dir` persists
+    each pass's table and resumes a pass whose configuration (data, device
+    type, dtype, thresholds, draws, flags, seed) is unchanged;
+    `additional_parameters_to_save` puts pass 2's constrained draws by name
+    in `attrs["additional_parameters"]`; `save_generated_quantities` (MCMC
+    with the exact CI) adds each point's simulated counts as a
+    "generated quantities" frame. `mesh` raises NotImplementedError.
     """
     if not approximate_posterior_inference:
         _check_sampler(mcmc_sampler)
     if mesh is not None:
         raise _not_ported("mesh (pass device= instead)", 6)
-    if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir", 5)
-    if additional_parameters_to_save:
-        raise _not_ported("additional_parameters_to_save", 5)
     device = resolve_device(device)
     dtype = working_dtype(device, dtype)
     if cores is None:
@@ -402,8 +456,6 @@ def identify_outliers(
         raise ValueError(
             "Variational Bayes does not support saving generated quantities, use sampling"
         )
-    if save_generated_quantities:
-        raise _not_ported("save_generated_quantities", 5)
     if not (0 <= percent_false_positive_genes <= 100) or np.isnan(percent_false_positive_genes):
         raise ValueError("percent_false_positive_genes must be between 0 and 100")
     if data[transcript].isna().any():
@@ -439,24 +491,26 @@ def identify_outliers(
             approximate_posterior_analysis = True
 
     # ---- data prep (R/methods.R:198-238) ---------------------------------
-    work = data.assign(do_check___=data[do_check].astype(bool))
-    my_df = ingest.format_input(
-        work, formula, sample, transcript, abundance, "do_check___",
-        significance, how_many_negative_controls,
-    )
-    X, _x_names, x_rows = create_design_matrix(my_df, formula, sample)
-    sorted_sample_names = list(x_rows[sample])
-
-    if scaling_factor is not None:
-        scal = (
-            data[[sample, scaling_factor]]
-            .drop_duplicates()
-            .rename(columns={scaling_factor: "multiplier"})
+    with timed("format input"):
+        work = data.assign(do_check___=data[do_check].astype(bool))
+        my_df = ingest.format_input(
+            work, formula, sample, transcript, abundance, "do_check___",
+            significance, how_many_negative_controls,
         )
-        scal["exposure_rate"] = -np.log(scal["multiplier"])
-        scal["exposure_multiplier"] = np.exp(scal["exposure_rate"])
-    else:
-        scal = sample_scaling(my_df, sample, transcript, abundance)
+    with timed("design matrix and scaling"):
+        X, _x_names, x_rows = create_design_matrix(my_df, formula, sample)
+        sorted_sample_names = list(x_rows[sample])
+
+        if scaling_factor is not None:
+            scal = (
+                data[[sample, scaling_factor]]
+                .drop_duplicates()
+                .rename(columns={scaling_factor: "multiplier"})
+            )
+            scal["exposure_rate"] = -np.log(scal["multiplier"])
+            scal["exposure_multiplier"] = np.exp(scal["exposure_rate"])
+        else:
+            scal = sample_scaling(my_df, sample, transcript, abundance)
     exposure_by_sample = dict(zip(scal[sample], scal["exposure_rate"]))
 
     common = dict(
@@ -471,15 +525,35 @@ def identify_outliers(
         seed=seed, device=device, dtype=dtype,
     )
 
+    # the device type and the dtype change the computation (kernels vs plain
+    # versions, f32 vs f64 densities): they invalidate checkpoints like any
+    # other config change
+    base_cfg = dict(
+        formula=formula, approx_inf=approximate_posterior_inference,
+        seed=seed, sampler=mcmc_sampler, adapt_trajectory=hmc_adapt_trajectory,
+        device=device.type, dtype=str(dtype),
+    )
+
     # ---- PASS 1: discovery (R/methods.R:268-286) -------------------------
-    with timed("pass 1 (discovery fit)"):
-        res_discovery = do_inference(
-            my_df,
-            approximate_posterior_analysis=False,
-            adj_prob_theshold=adj_prob_theshold_1,
-            how_many_posterior_draws=how_many_posterior_draws_1,
-            **common,
-        )
+    # a checkpoint stores the table, not the fit object: with pass_fit a
+    # resume would hand back no fit
+    resumable1 = bool(checkpoint_dir) and not pass_fit
+    fp1 = ckpt.config_fingerprint(
+        my_df, which="pass1", thr=adj_prob_theshold_1,
+        draws=how_many_posterior_draws_1, **base_cfg,
+    ) if resumable1 else ""
+    res_discovery = _resume(checkpoint_dir, "pass1", fp1) if resumable1 else None
+    if res_discovery is None:
+        with timed("pass 1 (discovery fit)"):
+            res_discovery = do_inference(
+                my_df,
+                approximate_posterior_analysis=False,
+                adj_prob_theshold=adj_prob_theshold_1,
+                how_many_posterior_draws=how_many_posterior_draws_1,
+                **common,
+            )
+        if resumable1:
+            _save(checkpoint_dir, "pass1", res_discovery, fp1)
     if just_discovery:
         return res_discovery.table
 
@@ -492,16 +566,33 @@ def identify_outliers(
     to_exclude = to_exclude.drop_duplicates()
 
     # ---- PASS 2: test at the user FP level (R/methods.R:320-342) ---------
-    with timed("pass 2 (truncated test fit)"):
-        res_test = do_inference(
-            my_df,
-            approximate_posterior_analysis=approximate_posterior_analysis,
-            adj_prob_theshold=adj_prob_theshold_2,
-            how_many_posterior_draws=how_many_posterior_draws_2,
-            to_exclude=to_exclude,
-            truncation_compensation=K.TRUNCATION_COMPENSATION_PASS2,
-            **common,
-        )
+    # resume is only sound when no unserialized outputs were requested
+    resumable2 = bool(checkpoint_dir) and not (
+        pass_fit or save_generated_quantities or additional_parameters_to_save
+    )
+    fp2 = ckpt.config_fingerprint(
+        my_df, which="pass2", thr=adj_prob_theshold_2,
+        draws=how_many_posterior_draws_2,
+        approx_analysis=approximate_posterior_analysis,
+        excluded=sorted(map(tuple, to_exclude.to_numpy().tolist())),
+        **base_cfg,
+    ) if resumable2 else ""
+    res_test = _resume(checkpoint_dir, "pass2", fp2) if resumable2 else None
+    if res_test is None:
+        with timed("pass 2 (truncated test fit)"):
+            res_test = do_inference(
+                my_df,
+                approximate_posterior_analysis=approximate_posterior_analysis,
+                adj_prob_theshold=adj_prob_theshold_2,
+                how_many_posterior_draws=how_many_posterior_draws_2,
+                to_exclude=to_exclude,
+                truncation_compensation=K.TRUNCATION_COMPENSATION_PASS2,
+                save_generated_quantities=save_generated_quantities,
+                additional_parameters_to_save=tuple(additional_parameters_to_save),
+                **common,
+            )
+        if resumable2:
+            _save(checkpoint_dir, "pass2", res_test, fp2)
 
     # ---- merge (reference merge_results, R/utilities.R:539-608) ----------
     result = merge_results(
@@ -522,14 +613,33 @@ def identify_outliers(
     result.attrs["sample_column"] = sample
     result.attrs["formula"] = formula
     if approximate_posterior_inference:
-        result.attrs["vb_iterations"] = tuple(
-            f.iterations if pass_fit else f["iterations"]
-            for f in (res_discovery.fit, res_test.fit)
-        )
+        result.attrs["vb_iterations"] = (res_discovery.vb_iterations, res_test.vb_iterations)
+    if res_test.additional_parameters:
+        result.attrs["additional_parameters"] = res_test.additional_parameters
     if pass_fit:
         result.attrs["fit 1"] = res_discovery.fit
         result.attrs["fit 2"] = res_test.fit
     return result
+
+
+def _save(checkpoint_dir: str, name: str, res: InferenceResult, fingerprint: str) -> None:
+    """Persist one pass's table with what a resume needs beside it."""
+    extra = {"total_draws": res.total_draws}
+    if res.vb_iterations is not None:
+        extra["vb_iterations"] = res.vb_iterations
+    ckpt.save_pass(checkpoint_dir, name, res.table, fingerprint, extra=extra)
+
+
+def _resume(checkpoint_dir: str, name: str, fingerprint: str) -> InferenceResult | None:
+    """The pass's checkpoint as an InferenceResult (no fit object), or None
+    when there is none for this fingerprint."""
+    table = ckpt.load_pass(checkpoint_dir, name, fingerprint)
+    if table is None:
+        return None
+    with open(os.path.join(checkpoint_dir, "meta.json")) as f:
+        meta = json.load(f)[name]
+    return InferenceResult(table=table, total_draws=int(meta["total_draws"]),
+                           vb_iterations=meta.get("vb_iterations"))
 
 
 def merge_results(

@@ -1,6 +1,6 @@
 """The CUDA likelihood kernels against their plain torch versions, a short
-HMC run through each likelihood route, and short NUTS and ChEES runs
-through "fast", on the card.
+HMC run through each likelihood route, short NUTS and ChEES runs
+through "fast", and the command-line entry point, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. They import
 no JAX, so the card can run them without the JAX package's test setup:
@@ -586,3 +586,29 @@ def test_short_chees_run_launches_k1_at_every_gradient():
     evals = 1 + res.num_leapfrog // 16
     assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": evals}
     assert batches == [16] * evals
+
+
+def test_cli_on_the_card(tmp_path):
+    """The command-line entry point on its default device, the card: the
+    reference's 3-gene calls (0, 1, 0) in result.csv, with K1 launched by
+    every fit."""
+    _needs_card()
+    import pandas as pd
+
+    from ppcseq_tpu_torch import load_counts
+    from ppcseq_tpu_torch.cli import main
+
+    counts = load_counts()
+    counts["is_significant"] = counts.symbol.isin(["SLC16A12", "CYP1A1", "ART3"])
+    inp = tmp_path / "input.csv"
+    counts.to_csv(inp, index=False)
+    nb_kernel.reset_launches()
+    assert main([str(inp), "-o", str(tmp_path / "out"), "--formula", "~ Label",
+                 "--sample", "sample", "--transcript", "symbol", "--abundance", "value",
+                 "--significance", "PValue", "--do-check", "is_significant",
+                 "--negative-controls", "50", "--seed", "42"]) == 0
+    torch.cuda.synchronize()
+    summary = pd.read_csv(tmp_path / "out" / "result.csv")
+    assert dict(zip(summary.symbol, summary.tot_deleterious_outliers)) == {
+        "SLC16A12": 0, "CYP1A1": 1, "ART3": 0}
+    assert nb_kernel.LAUNCHES["nb_glm_delta"] > 0

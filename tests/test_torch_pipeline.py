@@ -89,9 +89,10 @@ def test_host_prep_equals_jax(sig_counts):
 
 
 def test_unported_options_raise(sig_counts):
+    # checkpoint_dir and additional_parameters_to_save run since they were
+    # ported (tests/test_torch_checkpoint.py, tests/test_torch_product.py)
     for kw in (dict(approximate_posterior_inference=False, mcmc_sampler="nuts", mesh=object()),
-               dict(mesh=object()),
-               dict(checkpoint_dir="ckpt"), dict(additional_parameters_to_save=("sigma",))):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             identify_outliers(sig_counts, **{**_COMMON, **kw})
 
@@ -113,7 +114,9 @@ def test_device_policy():
 
 def test_port_imports_no_jax():
     code = ("import sys, ppcseq_tpu_torch, ppcseq_tpu_torch.utils.convert, "
-            "ppcseq_tpu_torch.infer.nuts, ppcseq_tpu_torch.infer.chains; "
+            "ppcseq_tpu_torch.infer.nuts, ppcseq_tpu_torch.infer.chains, "
+            "ppcseq_tpu_torch.cli, ppcseq_tpu_torch.utils.checkpoint, "
+            "ppcseq_tpu_torch.viz.plots; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'ppcseq_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -1,7 +1,7 @@
 """The port's MCMC branch of identify_outliers on the CPU: the reference's
 3-gene (0, 1, 0) calls through jittered HMC and through NUTS (as
 tests/test_pipeline_mcmc.py:42-58 runs them on the JAX package), and the
-options that are not ported yet raising NotImplementedError."""
+mesh, which is not ported yet, raising NotImplementedError."""
 
 import pytest
 import torch
@@ -74,13 +74,13 @@ def test_mcmc_nuts_pipeline(sig_counts, monkeypatch):
         assert info["rhat_max"] < 1.1 and info["ess_min"] > 0
 
 
-# The options nuts and adapt_trajectory run since they were ported (above,
-# and tests/test_torch_pipeline_extra.py); what stays refused of them is the
-# mesh that shards their chains or genes.
+# The options nuts, adapt_trajectory and save_generated_quantities run since
+# they were ported (above, tests/test_torch_pipeline_extra.py and
+# tests/test_torch_product.py); what stays refused of them is the mesh that
+# shards their chains or genes.
 @pytest.mark.parametrize("option", [dict(mcmc_sampler="nuts", mesh=object()),
-                                    dict(hmc_adapt_trajectory=True, mesh=object()),
-                                    dict(save_generated_quantities=True)],
-                         ids=["nuts", "adapt_trajectory", "generated_quantities"])
+                                    dict(hmc_adapt_trajectory=True, mesh=object())],
+                         ids=["nuts", "adapt_trajectory"])
 def test_mcmc_options_not_ported_raise(sig_counts, option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         identify_outliers(sig_counts, **{**_COMMON, **option})
