@@ -16,7 +16,8 @@ so the exit code is non-zero):
              + 500 controls); K1 at the command line's 50k batch shapes, the
              ADVI step (1, 100, 50000) with gradients and the ELBO
              (100, 100, 50000) value-only (its plain versions run in chunks
-             of rows of B there, to bound memory).
+             of rows of B there, to bound memory), and at phase mesh's
+             genes=2 shard of it, (1, 100, 25000) and (100, 100, 25000).
              Value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4; for K3's
              gradients, where the plain version itself is further than
              1e-4 from its float64 evaluation, the tolerance of
@@ -74,15 +75,38 @@ so the exit code is non-zero):
              save_generated_quantities and additional_parameters_to_save:
              calls (0, 1, 0), a generated-quantities frame with values >= 0
              on every point, sigma = exp(-sigma_raw).
+  8. mesh    identify_outliers(mesh=) and the sharded samplers, each run
+             as ranks of `torch.distributed.run` (torchrun) on the one card
+             (gloo between ranks on one card, each CUDA buffer staged
+             through the host; NCCL for a world of one), every rank running
+             `python3 chip_smoke.py --mesh-rank CASE`: (a) the command line
+             (cli.main, as `-m ppcseq_tpu_torch` runs it) on phase cli's
+             50,000 x 100 cohort with --mesh genes=2 (VB, the approximated
+             CI): every rank launches K1 at (B, 100, 25000) only, one
+             all-reduce per log-density evaluation, at least half the
+             injected cells flagged, finite bounds, and at most 2 of the
+             10,000 checked cells called otherwise than by the unsharded
+             command on the same table (run in this process before it);
+             (b) genes=1 under NCCL, the 3-gene case on VB; (c) chains=2,
+             the 3-gene case on jittered HMC, divergences <= 2%; (b) and
+             (c) give (0, 1, 0); (d) chains=2,genes=2 (4 ranks), the MCMC
+             branch on synthetic_tidy(64 genes, 8 samples, 3 checked), each
+             rank's gene range printed; (e) run_hmc_tree at genes=2 on
+             bench_scale.py's 50,000 x 100 cohort after a gene-sharded ADVI
+             warm start, 8 chains, warmup 100, L=32, 25 draws per chain,
+             adapted step size >= 1e-2; (f) chains=2, the 3-gene case on
+             ChEES (its chain statistics all-reduced), (0, 1, 0). Every
+             rank's K1 launches are a path of the `kernels` line.
 Phase nuts, the e2e NUTS row and phase cli run in three child processes of
 this script on the same card (`--child nuts`, `--child e2e-nuts`, `--child
 cli`), started after phase kernel, beside the parent's phases hmc and e2e;
-the parent waits for them, echoes their rows and fails if any failed. Each
-path runs with the kernel launch counts of its process set to 0 just before
-it and read just after; every kernel of the path must have launched. Then
-the card's name and power limit, a JSON line describing the kernels (with
-each kernel's launches on every path), and, last,
-{"ok": true, "device": {...}}.
+phase mesh runs in a fourth (`--child mesh`), started when the cli child
+has ended (both are mostly host work at 50k). The parent waits for them,
+echoes their rows and fails if any failed. Each path runs with the kernel
+launch counts of its process set to 0 just before it and read just after;
+every kernel of the path must have launched. Then the card's name and
+power limit, a JSON line describing the kernels (with each kernel's
+launches on every path), and, last, {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero at once and prints no result.
 """
@@ -305,11 +329,14 @@ def phase_kernel(counts_df, device):
     # 100-sample value-only ELBO and the bench HMC on the bundled cohort; the
     # ADVI step of the 50k x 100 pipeline cohort (its checked genes + 500
     # controls); the scale HMC; the ADVI step and the ELBO of the command
-    # line's 50k batch run (every gene in the fit)
+    # line's 50k batch run (every gene in the fit), and both at phase mesh's
+    # genes=2 shard of it
     z = (c50k, X50k, e50k, 100)
+    shard = (np.ascontiguousarray(c50k[:, :25000]), X50k, e50k, 100)  # genes=2, rank 0
     cases = [(1, bundled, None, True), (100, bundled, k12, False), (128, bundled, None, True),
              (1, (c600, X600, e600, 100), k12, True), (8, z, None, True),
-             (1, z, ["nb_glm_delta"], True), (100, z, ["nb_glm_delta"], False)]
+             (1, z, ["nb_glm_delta"], True), (100, z, ["nb_glm_delta"], False),
+             (1, shard, ["nb_glm_delta"], True), (100, shard, ["nb_glm_delta"], False)]
 
     rows = []
     for B, (counts, X, exposure, n_check), names, grads in cases:
@@ -784,11 +811,7 @@ def _cli_batch(device, tmp):
     ckpt = os.path.join(tmp, "checkpoint")
 
     def argv(out):
-        return [table, "-o", out, "--formula", "~ Label", "--sample", "sample",
-                "--transcript", "transcript", "--abundance", "count", "--significance", "PValue",
-                "--do-check", "do_check",
-                "--negative-controls", str(CLI_COHORT["n_genes"] - CLI_COHORT["n_check"]),
-                "--seed", "42", "--checkpoint-dir", ckpt]
+        return _cli_argv(table, out) + ["--checkpoint-dir", ckpt]
 
     k1 = 0
     outs = {}
@@ -922,6 +945,318 @@ def phase_cli(counts_df, device):
     return k1 + _cli_mcmc_product(counts_df, device)
 
 
+# ---- phase mesh: ranks of torchrun on the one card ---------------------------
+
+MESH_TIMEOUT_S = 600  # per torchrun call
+MESH_DEVICE = "cuda"
+# (e): bench_scale.py's cohort and sampler, 25 draws per chain
+HMC50K = dict(n_genes=50000, n_samples=100, chains=8, warmup=100, draws=25, L=32)
+
+
+def _three(counts_df):
+    return counts_df.assign(is_significant=counts_df.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+
+
+def _mesh_case_cli(args, device):
+    """(a): cli.main with --mesh genes=2 (what `-m ppcseq_tpu_torch` runs)."""
+    table, out = args
+    wall, stages = _cli_main(_cli_argv(table, out) + ["--mesh", "genes=2",
+                                                       "--device", MESH_DEVICE])
+    return dict(cli_wall_s=wall, stages_s=stages)
+
+
+def _mesh_case_identify(mesh_shape, names, kw):
+    def case(args, device):
+        import torch
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from ppcseq_tpu_torch import identify_outliers, load_counts
+        from ppcseq_tpu_torch.utils.synthetic import synthetic_tidy
+
+        mesh = init_device_mesh(MESH_DEVICE, mesh_shape, mesh_dim_names=names)
+        if kw.get("synthetic"):
+            df = synthetic_tidy(n_genes=64, n_samples=8, n_check=3, seed=0)
+            common = dict(formula="~ Label", how_many_negative_controls=40)
+        else:
+            df = _three(load_counts())
+            common = dict(formula="~ Label", sample="sample", transcript="symbol",
+                          abundance="value", significance="PValue", do_check="is_significant",
+                          percent_false_positive_genes=1, how_many_negative_controls=50)
+        opts = {k: v for k, v in kw.items() if k != "synthetic"}
+        res = identify_outliers(df, mesh=mesh, seed=42, pass_fit=True, device=device,
+                                **common, **opts)
+        key = "symbol" if "symbol" in res.columns else "transcript"
+        out = dict(calls=dict(zip(map(str, res[key]), map(int, res.tot_deleterious_outliers))))
+        fits = [res.attrs["fit 1"], res.attrs["fit 2"]]
+        if hasattr(fits[1], "draws"):
+            out.update(divergences=[int(f.divergences.sum()) for f in fits],
+                       transitions=[int(f.accept_prob.size) for f in fits],
+                       draws_shape=list(fits[1].draws.shape), genes=fits[1].genes,
+                       chains=fits[1].chains,
+                       draws_finite=all(bool(torch.isfinite(f.draws).all()) for f in fits))
+        return out
+    return case
+
+
+def _mesh_case_hmc50k(args, device):
+    """(e): run_hmc_tree at genes=2 on bench_scale.py's cohort, after a
+    gene-sharded ADVI warm start."""
+    import functools
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.infer.advi import fit_advi
+    from ppcseq_tpu_torch.infer.hmc import run_hmc_tree
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.parallel import sharding
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    mesh = init_device_mesh(MESH_DEVICE, (2,), mesh_dim_names=("genes",))
+    counts, X, exposure, _ = synthetic_cohort(HMC50K["n_genes"], HMC50K["n_samples"],
+                                              n_check=100, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 100, device="cpu",
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    init = nb_model.smart_init(data, dims)
+    layout = sharding.Layout.from_mesh(mesh, dims)
+    local = sharding.shard_data(data, layout.genes, device)
+    logp = nb_model.flat_logp(dims)
+    gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = fit_advi(functools.partial(logp, data=local, shard=layout.genes), dims.dim, gen,
+                    init_mean=init,
+                    tol_rel_obj=0.01, learning_rate=0.3, eval_every=50, grad_samples=4,
+                    layout=layout, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_hmc_tree(logp, dims, gen, data=local, mesh=mesh, num_chains=HMC50K["chains"],
+                       num_warmup=HMC50K["warmup"], num_draws=HMC50K["draws"],
+                       num_leapfrog=HMC50K["L"], init_theta=warm.mean,
+                       inv_mass=torch.exp(2.0 * warm.log_sd), device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    total = HMC50K["chains"] * HMC50K["draws"]
+    return dict(advi_s=t1 - t0, hmc_s=t2 - t1, advi_iterations=warm.iterations,
+                step_size=res.step_size, leapfrog_steps=res.num_leapfrog,
+                divergences=int(res.divergences.sum()), draws_per_s=total / (t2 - t0),
+                hmc_draws_per_s=total / (t2 - t1), genes=res.genes,
+                draws_finite=bool(torch.isfinite(res.draws).all()))
+
+
+MESH_CASES = {
+    "cli50k": _mesh_case_cli,
+    "nccl": _mesh_case_identify((1,), ("genes",), {}),
+    "chains": _mesh_case_identify((2,), ("chains",), dict(
+        approximate_posterior_inference=False, mcmc_sampler="hmc")),
+    "2d": _mesh_case_identify((2, 2), ("chains", "genes"), dict(
+        approximate_posterior_inference=False, mcmc_sampler="hmc", synthetic=True)),
+    "hmc50k": _mesh_case_hmc50k,
+    "chees": _mesh_case_identify((2,), ("chains",), dict(
+        approximate_posterior_inference=False, mcmc_sampler="hmc", hmc_adapt_trajectory=True)),
+}
+
+
+def _mesh_rank(case, args):
+    """One rank of a phase mesh run (`python3 chip_smoke.py --mesh-rank CASE
+    OUT_DIR ...` under torchrun): the case with the launch and collective
+    counts zeroed just before it and read just after, and K1's (B, S, G) of
+    every launch, written to OUT_DIR/CASE-rankR.json."""
+    import torch
+    import torch.distributed as dist
+
+    from ppcseq_tpu_torch.ops import nb_kernel
+    from ppcseq_tpu_torch.parallel import multihost, sharding
+
+    out_dir, args = args[0], args[1:]
+    nb_kernel.build_all()  # built by the parent: loads
+    multihost.initialize(MESH_DEVICE)
+    device = torch.device(MESH_DEVICE, torch.cuda.current_device())
+    shapes = set()
+    launch = nb_kernel.launch_delta
+
+    def counted(X, counts, mask, d0, alpha, *rest, **kw):
+        shapes.add((int(alpha.shape[0]), int(counts.shape[0]), int(counts.shape[1])))
+        return launch(X, counts, mask, d0, alpha, *rest, **kw)
+
+    nb_kernel.launch_delta = counted
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    nb_kernel.reset_launches()
+    sharding.reset_collectives()
+    t0 = time.perf_counter()
+    out = MESH_CASES[case](args, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(case=case, rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=str(dist.get_backend()), wall_s=wall, launches=dict(nb_kernel.LAUNCHES),
+               k1_shapes=sorted(shapes), collectives=dict(sharding.COLLECTIVES),
+               peak_device_bytes=torch.cuda.max_memory_allocated(device), **out)
+    with open(os.path.join(out_dir, f"{case}-rank{rec['rank']}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _torchrun(n, case, out_dir, *args):
+    """Run `case` on n ranks of torchrun; returns each rank's record, and
+    puts each rank's launch counts in PATH_LAUNCHES."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(n), os.path.abspath(__file__), "--mesh-rank", case, out_dir, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh {case} failed (exit code {proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"{case}-rank{r}.json")) as f:
+            recs.append(json.load(f))
+        PATH_LAUNCHES[f"mesh {case} rank {r}"] = recs[-1]["launches"]
+        print(f"phase mesh {case} rank {r} launches " + json.dumps(recs[-1]["launches"]),
+              flush=True)
+        if recs[-1]["launches"]["nb_glm_delta"] <= 0:
+            raise AssertionError(f"mesh {case}: rank {r} never launched K1")
+    return recs, wall
+
+
+def _per_rank(recs, *keys):
+    return {k: [r[k] for r in recs] for k in keys}
+
+
+def _collectives_row(recs):
+    """All-reduces per log-density evaluation (= K1 launch), their bytes
+    (those of the log-density all-reduces apart: one per ADVI step or
+    leapfrog, and one per ELBO) and host ms, per rank."""
+    rows = []
+    for r in recs:
+        c, k1 = r["collectives"], r["launches"]["nb_glm_delta"]
+        rows.append(dict(all_reduce=c["all_reduce"], logp_all_reduce=c["logp"], k1_launches=k1,
+                         logp_per_evaluation=c["logp"] / max(k1, 1),
+                         bytes=c["bytes"],
+                         bytes_per_all_reduce=c["bytes"] / max(c["all_reduce"], 1),
+                         bytes_per_logp_all_reduce=c["logp_bytes"] / max(c["logp"], 1),
+                         by_purpose={k: c[k] for k in ("logp", "sums", "chains", "check",
+                                                       "gather")},
+                         host_ms=c["seconds"] * 1e3,
+                         host_ms_per_all_reduce=c["seconds"] * 1e3 / max(c["all_reduce"], 1)))
+    return rows
+
+
+def _cli_argv(table, out):
+    return [table, "-o", out, "--formula", "~ Label", "--sample", "sample",
+            "--transcript", "transcript", "--abundance", "count", "--significance", "PValue",
+            "--do-check", "do_check",
+            "--negative-controls", str(CLI_COHORT["n_genes"] - CLI_COHORT["n_check"]),
+            "--seed", "42"]
+
+
+def _cell_calls(out):
+    """(sample, transcript) -> (ppc passed, deleterious) of a run's CSV."""
+    import pandas as pd
+
+    flat = pd.read_csv(os.path.join(out, "sample_wise_data.csv"))
+    return {(s, t): (bool(p), bool(d)) for s, t, p, d in zip(
+        flat["sample"], flat["transcript"], flat["posterior_predictive_check_succeded"],
+        flat["deleterious_outliers"])}, flat
+
+
+def _mesh_cli(tmp):
+    """(a): the unsharded command in this process, then --mesh genes=2 on 2
+    ranks. Returns the unsharded run's K1 launches."""
+    import torch
+
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_tidy
+
+    table = os.path.join(tmp, "cohort.parquet")
+    synthetic_tidy(**CLI_COHORT).to_parquet(table)
+    spiked = set(map(tuple, synthetic_cohort(**CLI_COHORT)[3]["outliers"]))
+    single, sharded = os.path.join(tmp, "single"), os.path.join(tmp, "genes2")
+    (wall1, stages1), counts = _run_path("mesh cli50k unsharded",
+                                         lambda: _cli_main(_cli_argv(table, single)
+                                                           + ["--device", MESH_DEVICE]),
+                                         ["nb_glm_delta"])
+    recs, wall = _torchrun(2, "cli50k", tmp, table, sharded)
+    want, _ = _cell_calls(single)
+    got, flat = _cell_calls(sharded)
+    failed = flat[~flat["posterior_predictive_check_succeded"].astype(bool)]
+    flagged = {(int(s[1:]), int(t[1:])) for s, t in zip(failed["sample"], failed["transcript"])}
+    differ = sum(got[k] != want[k] for k in want)
+    bounds_finite = bool(np.isfinite(flat[[".lower", ".upper"]].to_numpy()).all())
+    fit = "variational fit"
+    row = dict(run="(a) cli 50k --mesh genes=2", config="scripts/bench_pipeline_scale.py via "
+               "cli.main, 2 ranks of torchrun on one card", torchrun_wall_s=wall,
+               **_per_rank(recs, "backend", "cli_wall_s", "peak_device_bytes", "k1_shapes"),
+               fit_wall_s=[r["stages_s"].get(fit) for r in recs],
+               stages_s=recs[0]["stages_s"], unsharded_wall_s=wall1,
+               unsharded_fit_wall_s=stages1.get("variational fit"),
+               collectives=_collectives_row(recs), checked_cells=len(want),
+               cells_called_otherwise=differ, bounds_finite=bounds_finite,
+               injected_outlier_cells=len(spiked), injected_cells_flagged=len(spiked & flagged))
+    print("phase mesh " + json.dumps(row), flush=True)
+    shard = (CLI_COHORT["n_samples"], CLI_COHORT["n_genes"] // 2)
+    for r in recs:
+        if {tuple(sh)[1:] for sh in r["k1_shapes"]} != {shard}:
+            raise AssertionError(f"mesh cli50k rank {r['rank']}: K1 shapes {r['k1_shapes']}")
+    for c in row["collectives"]:
+        if c["logp_all_reduce"] != c["k1_launches"]:
+            raise AssertionError(f"mesh cli50k: not one all-reduce per evaluation: {c}")
+    if not bounds_finite or 2 * row["injected_cells_flagged"] < len(spiked) or differ > 2:
+        raise AssertionError(f"mesh cli50k: {row}")
+    torch.cuda.empty_cache()
+    return counts["nb_glm_delta"]
+
+
+def phase_mesh(counts_df, device):
+    """The six mesh runs (a)-(f). Returns the K1 launches of all their
+    ranks and of the unsharded reference run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        k1 = _mesh_cli(tmp)
+        for case, n, label in (("nccl", 1, "(b) genes=1 NCCL, 3-gene VB"),
+                               ("chains", 2, "(c) chains=2, 3-gene HMC"),
+                               ("2d", 4, "(d) chains=2,genes=2, synthetic MCMC"),
+                               ("hmc50k", 2, "(e) run_hmc_tree genes=2, 50k x 100"),
+                               ("chees", 2, "(f) chains=2, 3-gene ChEES")):
+            recs, wall = _torchrun(n, case, tmp)
+            keys = [k for k in ("calls", "divergences", "transitions", "draws_shape", "genes",
+                                "chains", "draws_finite", "step_size", "advi_iterations",
+                                "advi_s", "hmc_s", "draws_per_s", "hmc_draws_per_s",
+                                "leapfrog_steps") if k in recs[0]]
+            row = dict(run=label, torchrun_wall_s=wall,
+                       **_per_rank(recs, "backend", "wall_s", "peak_device_bytes", "k1_shapes",
+                                   *keys),
+                       collectives=_collectives_row(recs))
+            print("phase mesh " + json.dumps(row), flush=True)
+            for r in recs:
+                if case in ("nccl", "chains", "chees") and r["calls"] != {
+                        "SLC16A12": 0, "CYP1A1": 1, "ART3": 0}:
+                    raise AssertionError(f"mesh {case}: calls {r['calls']} differ from (0, 1, 0)")
+                if case == "nccl" and "nccl" not in r["backend"]:
+                    raise AssertionError(f"mesh nccl: backend {r['backend']}")
+                if case == "chains" and any(d > 0.02 * t for d, t in zip(r["divergences"],
+                                                                        r["transitions"])):
+                    raise AssertionError(f"mesh chains: divergences {r['divergences']}")
+                if not r.get("draws_finite", True):
+                    raise AssertionError(f"mesh {case}: non-finite draws")
+                if case == "hmc50k" and r["step_size"] < 1e-2:
+                    raise AssertionError(f"mesh hmc50k: step size {r['step_size']} < 1e-2")
+                if case in ("nccl", "hmc50k"):
+                    bad = [c for c in _collectives_row([r]) if c["logp_all_reduce"]
+                           != c["k1_launches"]]
+                    if bad:
+                        raise AssertionError(f"mesh {case}: not one all-reduce per "
+                                             f"evaluation: {bad}")
+            k1 += sum(r["launches"]["nb_glm_delta"] for r in recs)
+    return k1
+
+
 # The two NUTS paths take most of the run (each batched evaluation is some
 # 250 eager launches, and a leaf ends in a host sync), and phase cli's 50k
 # runs are mostly host work: they run in child processes of this script on
@@ -929,6 +1264,7 @@ def phase_cli(counts_df, device):
 # beside the parent's phases hmc and e2e.
 E2E_NUTS = "3-gene NUTS approx"
 CHILDREN = ("nuts", "e2e-nuts", "cli")
+LATER_CHILD = ("mesh", "cli")  # started when the second has ended
 CHILD_RESULT = "chip_smoke child result "
 
 
@@ -940,28 +1276,45 @@ def _run_child(name, counts_df, device):
         k1 = 0
     elif name == "cli":
         k1 = phase_cli(counts_df, device)
+    elif name == "mesh":
+        k1 = phase_mesh(counts_df, device)
     else:
         k1 = phase_e2e(counts_df, device, nuts_only=True)
     print(CHILD_RESULT + json.dumps({"paths": PATH_LAUNCHES, "k1_launches": k1}), flush=True)
 
 
-def _start_children():
+def _start_child(name):
     import subprocess
     import tempfile
 
-    children = {}
-    for name in CHILDREN:
-        out = tempfile.TemporaryFile(mode="w+")
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", name],
-                                stdout=out, stderr=subprocess.STDOUT, text=True)
-        children[name] = (proc, out)
-    return children
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", name],
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
 
 
-def _finish_children(children):
+def _start_children():
+    """The children of CHILDREN now, and LATER_CHILD's first once its
+    second has ended (from a thread; _finish_children joins it)."""
+    import threading
+
+    children = {name: _start_child(name) for name in CHILDREN}
+    later, after = LATER_CHILD
+
+    def start_later():
+        children[after][0].wait()
+        children[later] = _start_child(later)
+
+    thread = threading.Thread(target=start_later, daemon=True)
+    thread.start()
+    return children, thread
+
+
+def _finish_children(children, thread):
     """Wait for each child, echo its output, merge its paths' launch counts
     into PATH_LAUNCHES; fail if a child failed. Returns their K1 launches."""
     k1 = 0
+    thread.join()
     for name, (proc, out) in children.items():
         rc = proc.wait()
         out.seek(0)
@@ -994,6 +1347,9 @@ def main() -> None:
         nb_kernel.build_all()  # built by the parent: loads
         _run_child(sys.argv[2], load_counts(), device)
         return
+    if len(sys.argv) >= 4 and sys.argv[1] == "--mesh-rank":
+        _mesh_rank(sys.argv[2], sys.argv[3:])
+        return
 
     print("phase probe\n" + probe(), flush=True)
 
@@ -1011,13 +1367,19 @@ def main() -> None:
 
     counts_df = load_counts()
     kernel_rows = phase_kernel(counts_df, device)
-    children = _start_children()
+    children, thread = _start_children()
     try:
         hmc_launches = phase_hmc(counts_df, device)
         k1_launches = phase_e2e(counts_df, device)
         print(f"phase parent done in {time.perf_counter() - t_start:.1f} s", flush=True)
-        k1_launches += _finish_children(children)
+        k1_launches += _finish_children(children, thread)
     finally:
+        # on a failure, stop the children first: the thread waits for one
+        for proc, _ in list(children.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        thread.join()
         for proc, out in children.values():
             if proc.poll() is None:
                 proc.kill()

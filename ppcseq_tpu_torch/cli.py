@@ -16,6 +16,11 @@ Usage:
   python -m ppcseq_tpu_torch input.csv --formula "~ Label" --sample sample \
       --transcript symbol --abundance value --significance PValue \
       --do-check is_significant -o results/ --device cuda
+
+Sharded over several processes (`--mesh`, one process per rank; with a
+mesh only rank 0 prints and writes the outputs):
+  torchrun --nproc-per-node 4 -m ppcseq_tpu_torch input.csv ... \
+      --mesh chains=2,genes=2 --device cpu
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,13 +68,64 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device the fits and the CI simulation run on "
                         "(default: the card; 'cpu' runs the kernels' plain versions)")
     p.add_argument("--mesh", default=None, metavar="AXES",
-                   help="multi-device mesh spec, e.g. 'genes=4': not ported "
-                        "(identify_outliers raises NotImplementedError)")
+                   help="mesh spec, e.g. 'genes=4' or 'chains=2,genes=2': both passes' "
+                        "fits run sharded over that many processes, launched with "
+                        "torchrun --nproc-per-node N (the axis product). Axis names: "
+                        "'genes' (gene-data-parallel model state) and/or 'chains' "
+                        "(split MCMC chain batch)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="persist per-pass fits; a rerun with identical config resumes")
     p.add_argument("--plots", action="store_true", help="write per-transcript CI plots")
     p.add_argument("--json", action="store_true", help="print the summary as JSON to stdout")
     return p
+
+
+def parse_mesh_spec(spec: str | None, device: str = "cuda"):
+    """'genes=2' / 'chains=2,genes=2' -> a DeviceMesh over the processes
+    that torchrun started (parallel/multihost.initialize), on `device`'s
+    type; the axes in the spec's order. A bad spec is a SystemExit."""
+    if spec is None:
+        return None
+    axes: dict[str, int] = {}
+    for part in spec.split(","):
+        name, _, count = part.partition("=")
+        name = name.strip()
+        if name not in ("genes", "chains") or not count.strip().isdigit():
+            raise SystemExit(
+                f"--mesh: bad axis {part!r} (want e.g. 'genes=4' or 'chains=2,genes=4')")
+        if name in axes:
+            raise SystemExit(f"--mesh: duplicate axis {name!r}")
+        if int(count) < 1:
+            raise SystemExit(f"--mesh: axis {name!r} needs at least 1 process, got {count}")
+        axes[name] = int(count)
+    n = 1
+    for size in axes.values():
+        n *= size
+    world = os.environ.get("WORLD_SIZE")
+    if world is None and n > 1:
+        raise SystemExit(f"--mesh {spec} needs {n} processes: launch with "
+                         f"torchrun --nproc-per-node {n} -m ppcseq_tpu_torch ...")
+    if world is not None and int(world) != n:
+        raise SystemExit(f"--mesh {spec} needs {n} processes, but WORLD_SIZE is {world}")
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.parallel import multihost
+
+    dev = torch.device(device).type
+    if world is None:  # one process, not started by torchrun
+        multihost.initialize(dev, init_method=f"tcp://127.0.0.1:{_free_port()}")
+    else:
+        multihost.initialize(dev)
+    return init_device_mesh(dev, tuple(axes.values()), mesh_dim_names=tuple(axes))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _read_table(path: str):
@@ -86,6 +144,10 @@ def main(argv=None) -> int:
     from ppcseq_tpu_torch import identify_outliers
     from ppcseq_tpu_torch.utils.log import timed
 
+    import torch.distributed as dist
+
+    owns_group = args.mesh is not None and not dist.is_initialized()
+    mesh = parse_mesh_spec(args.mesh, args.device)
     with timed("read table"):
         df = _read_table(args.input)
     result = identify_outliers(
@@ -107,9 +169,15 @@ def main(argv=None) -> int:
         seed=args.seed,
         cores=args.cores,
         checkpoint_dir=args.checkpoint_dir,
-        mesh=args.mesh,
+        mesh=mesh,
         device=args.device,
     )
+    if mesh is not None:
+        rank = dist.get_rank()
+        if owns_group:
+            dist.destroy_process_group()
+        if rank != 0:  # every rank holds the same result; rank 0 writes it
+            return 0
 
     with timed("write results"):
         os.makedirs(args.output, exist_ok=True)

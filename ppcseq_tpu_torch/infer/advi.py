@@ -14,6 +14,13 @@ so the same noise can drive both packages.
 The log density takes a batch: `log_density(theta[B, D]) -> [B]`. The
 steps run eagerly, one small op at a time (~40 per step plus one
 likelihood launch); JAX ran each 100-step chunk as one compiled scan.
+
+With a `layout` (parallel/sharding.Layout with a gene shard) the fit is
+gene-sharded: `log_density` is a rank's local log density over its local
+vector, every evaluation reduces its value and the replicated gradients in
+one all-reduce, Adam runs on the local vector, the noise is drawn for the
+global vector and sliced, and the ELBO (entropy included), the stop rule
+and the retry decision are global, so every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -51,6 +58,26 @@ def elbo_estimate(log_density, m, log_s, eps):
     logps = log_density(m + torch.exp(log_s) * eps)
     entropy = torch.sum(log_s) + 0.5 * m.shape[-1] * (1.0 + math.log(2.0 * math.pi))
     return torch.mean(logps) + entropy
+
+
+def _sharded_elbo(local_density, m, log_s, eps, layout, global_dim):
+    """The global ELBO of a gene-sharded fit, under no_grad: the local
+    values and the gene part of sum(log_s) in one all-reduce."""
+    lo, hi = layout.genes.gene_block
+    logps, _, (gene_s,) = layout.reduce(local_density(m + torch.exp(log_s) * eps),
+                                        extra=(torch.sum(log_s[lo:hi], dtype=torch.float64),))
+    rep_s = torch.sum(log_s[:lo], dtype=torch.float64) + torch.sum(log_s[hi:],
+                                                                   dtype=torch.float64)
+    entropy = rep_s + gene_s + 0.5 * global_dim * (1.0 + math.log(2.0 * math.pi))
+    return torch.mean(logps) + entropy
+
+
+def normal_noise(generator, shape, dim, layout, device, dtype):
+    """Standard normals [*shape, D]: drawn for the global vector and sliced
+    to the local one under a gene layout, so every rank draws the numbers of
+    the unsharded fit."""
+    eps = torch.randn(tuple(shape) + (dim,), generator=generator, device=device, dtype=dtype)
+    return eps if layout is None else layout.local(eps)
 
 
 def adam_init(params: dict) -> AdamState:
@@ -100,6 +127,7 @@ def fit_advi(
     window: int = 8,
     init_mean=None,
     init_log_sd: float | None = None,
+    layout=None,
     device="cuda",
     dtype=torch.float32,
 ) -> ADVIResult:
@@ -109,9 +137,14 @@ def fit_advi(
     estimated with `elbo_samples` draws every `eval_every` steps; stop when
     the mean or the median of the last `window` relative changes drops
     below tol_rel_obj (Stan ADVI's rule). `device` defaults to the card and
-    must exist (utils/device.resolve_device).
+    must exist (utils/device.resolve_device). With a gene `layout`, `dim`
+    is the global dimension, `log_density` the rank's local one, and
+    `init_mean` global or local; the result's mean and log_sd are local.
     """
     device = resolve_device(device)
+    if layout is not None and layout.genes is None:
+        layout = None  # no gene shard: the single-device fit
+    local_dim = dim if layout is None else layout.genes.dim
     if init_log_sd is None:
         init_log_sd = -1.0 if init_mean is not None else 0.0
     m0 = (
@@ -119,23 +152,29 @@ def fit_advi(
         if init_mean is not None
         else torch.zeros(dim, dtype=dtype, device=device)
     )
-    params = {"m": m0, "log_s": torch.full((dim,), float(init_log_sd), dtype=dtype, device=device)}
+    if layout is not None:
+        m0 = layout.local(m0).clone()
+    params = {"m": m0,
+              "log_s": torch.full((local_dim,), float(init_log_sd), dtype=dtype, device=device)}
     state = adam_init(params)
+    density = log_density if layout is None else layout.density(log_density)
 
     elbos: list[float] = []
     deltas: list[float] = []
     converged = False
     it = 0
     while it < max_iter:
-        noise = torch.randn(
-            (eval_every, grad_samples, dim), generator=generator, device=device, dtype=dtype
-        )
+        noise = normal_noise(generator, (eval_every, grad_samples), dim, layout, device, dtype)
         for k in range(eval_every):
-            params, state, _ = advi_step(params, state, noise[k], log_density, learning_rate)
+            params, state, _ = advi_step(params, state, noise[k], density, learning_rate)
         it += eval_every
-        eps = torch.randn((elbo_samples, dim), generator=generator, device=device, dtype=dtype)
+        eps = normal_noise(generator, (elbo_samples,), dim, layout, device, dtype)
         with torch.no_grad():
-            elbo = float(elbo_estimate(log_density, params["m"], params["log_s"], eps))
+            if layout is None:
+                elbo = float(elbo_estimate(log_density, params["m"], params["log_s"], eps))
+            else:
+                elbo = float(_sharded_elbo(log_density, params["m"], params["log_s"], eps,
+                                           layout, dim))
         if not np.isfinite(elbo):
             break
         if elbos:
@@ -160,10 +199,15 @@ def fit_advi(
     )
 
 
-def advi_sample(result: ADVIResult, generator: torch.Generator, n_draws: int) -> torch.Tensor:
-    """n_draws samples [n, D] from the fitted meanfield posterior."""
+def advi_sample(result: ADVIResult, generator: torch.Generator, n_draws: int,
+                layout=None, dim: int | None = None) -> torch.Tensor:
+    """n_draws samples [n, D] from the fitted meanfield posterior; under a
+    gene `layout` the local coordinates of draws made for the global `dim`."""
     m, log_s = result.mean, result.log_sd
-    eps = torch.randn((n_draws, m.shape[0]), generator=generator, device=m.device, dtype=m.dtype)
+    if layout is not None and layout.genes is None:
+        layout = None
+    eps = normal_noise(generator, (n_draws,), m.shape[0] if layout is None else dim, layout,
+                       m.device, m.dtype)
     return m + torch.exp(log_s) * eps
 
 
@@ -175,19 +219,24 @@ def vb_iterative(
     max_attempts: int = 5,
     min_elbo: float = -1e15,
     init_mean=None,
+    layout=None,
     **advi_kwargs,
 ) -> ADVIResult:
     """Retry ADVI until it succeeds (reference `vb_iterative`,
     R/utilities.R:246-278). After the first failure the data-driven init
-    is dropped in favour of the zero init."""
+    is dropped in favour of the zero init. Under a gene `layout` the mean
+    must be finite on every rank."""
     last = None
     for attempt in range(max_attempts):
         res = fit_advi(
             log_density, dim, generator,
             init_mean=init_mean if attempt == 0 else None,
+            layout=layout,
             **advi_kwargs,
         )
         finite_mean = bool(torch.isfinite(res.mean).all())
+        if layout is not None:
+            finite_mean = layout.all(finite_mean, res.mean.device)
         if np.isfinite(res.elbo) and res.elbo > min_elbo and finite_mean:
             return res
         last = res

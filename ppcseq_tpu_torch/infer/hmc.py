@@ -27,16 +27,30 @@ scan). The plain sampler does not wait on the device: L_t is drawn on the
 host from a CPU generator, and the accept and step-size state stay on the
 device until the end of the run. The ChEES warmup reads its L_t from the
 device once per draw; its sampler reads all the draws' L_t at once.
+
+Sharded runs (parallel/sharding.py): `run_hmc(mesh=)` splits the chain
+batch over a `chains` axis and, given the model's dims, the genes over a
+`genes` axis, each rank holding its local flat vector (`run_hmc_tree`, the
+counterpart of JAX's tree-state runner, hmc.py:500-732, is that call).
+They run the single-device sampler's code, with the energies summed over
+the global state (one all-reduce per transition), every statistic across
+chains (the dual-averaging accept mean, ChEES's chain means, principal
+component and criterion) taken over the global chain batch, and random
+numbers drawn for the global state and sliced (`LayoutDraws`), so a
+sharded run draws the unsharded run's numbers. ChEES runs over a `chains`
+axis only, as in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.parallel.sharding import Layout, mesh_axes, shard_data
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 MAX_DELTA_ENERGY = 1000.0
@@ -68,6 +82,11 @@ class HMCResult:
     step_size: float
     num_leapfrog: int  # executed leapfrog steps, all chains, warmup + sampling
     trajectory_length: float | None = None  # adapted T (adapt_trajectory=True)
+    # a sharded run's draws are the rank's own: chains [c0, c1) of the global
+    # batch and, under a genes axis, genes [g0, g1) in its local layout
+    # (accept_prob and divergences cover every chain)
+    chains: tuple[int, int] | None = None
+    genes: tuple[int, int] | None = None
 
 
 class GeneratorDraws:
@@ -85,6 +104,36 @@ class GeneratorDraws:
 
     def uniform(self, n: int, what: str):
         return torch.rand((n,), generator=self.generator, device=self.device, dtype=self.dtype)
+
+    def init_uniform(self, shape):
+        """Uniforms on [0, 1) of a [chains, D] initial state."""
+        return torch.rand(shape, generator=self.generator, device=self.device, dtype=self.dtype)
+
+
+class LayoutDraws(GeneratorDraws):
+    """GeneratorDraws of a sharded run (parallel/sharding.Layout): each
+    normal is drawn for the global [num_chains, dim] state from a generator
+    seeded alike on every rank, and the rank keeps its chains and its local
+    coordinates; uniforms are drawn for every chain. So every rank consumes
+    its generator as the unsharded run does, and a sharded run draws exactly
+    the unsharded run's numbers (at the same padding)."""
+
+    def __init__(self, generator, device, dtype, layout, num_chains: int, dim: int):
+        super().__init__(generator, device, dtype)
+        self.layout, self.num_chains, self.dim = layout, int(num_chains), int(dim)
+        self.c0, self.c1 = layout.chain_range(self.num_chains)
+
+    def _mine(self, full):
+        return self.layout.local(full[self.c0:self.c1])
+
+    def momentum(self, shape):
+        return self._mine(super().momentum((self.num_chains, self.dim)))
+
+    def uniform(self, n: int, what: str):
+        return super().uniform(self.num_chains, what)[self.c0:self.c1]
+
+    def init_uniform(self, shape):
+        return self._mine(super().init_uniform((self.num_chains, self.dim)))
 
 
 def logp_and_grad(log_density, z, data=None):
@@ -109,9 +158,28 @@ def leapfrog(z, r, g, eps, inv_mass, grad_fn):
     return z1, r_half + 0.5 * eps * g1, g1, lp1
 
 
-def kinetic(r, inv_mass):
-    """0.5 r' M^-1 r per chain, summed in float64: r[chains, D] -> [chains]."""
-    return 0.5 * torch.sum(r * r * inv_mass, dim=-1, dtype=torch.float64)
+_SINGLE = Layout()  # one process: every reduction is the plain local one
+
+
+def sampler_density(log_density, data, mesh, dims, device, who):
+    """(layout, grad_fn) of a sampler run on `mesh` (None: one process).
+    A `genes` axis needs `dims` and `data`; log_density is then
+    nb_model.flat_logp(dims): `f(theta, data, shard)` over a rank's local
+    vector, and `data` the whole model data (sharded here) or the rank's
+    shard already. grad_fn(theta) -> (global lp, gradient) as logp_and_grad."""
+    if mesh is None:
+        layout = _SINGLE
+    else:
+        if "genes" in mesh_axes(mesh) and (dims is None or data is None):
+            raise ValueError(f"{who} over a 'genes' mesh axis needs dims= and data=")
+        layout = Layout.from_mesh(mesh, dims)
+    shard = layout.genes
+    if shard is None:
+        return layout, functools.partial(logp_and_grad, log_density, data=data)
+    if data.counts.shape[-1] == dims.G != shard.G_local:
+        data = shard_data(data, shard, device)
+    density = layout.density(functools.partial(log_density, data=data, shard=shard))
+    return layout, functools.partial(logp_and_grad, density)
 
 
 def dual_average(log_eps_avg, h_sum, accept_mean, i, mu, target_accept):
@@ -126,13 +194,15 @@ def dual_average(log_eps_avg, h_sum, accept_mean, i, mu, target_accept):
     return log_eps, log_eps_avg, h_sum
 
 
-def _energy_change(lp0, r0, lp1, r1, inv_mass):
-    """H(end) - H(start) in float64, NaN -> +inf."""
-    delta = (-lp1 + kinetic(r1, inv_mass)) - (-lp0 + kinetic(r0, inv_mass))
+def _energy_change(lp0, r0, lp1, r1, inv_mass, layout=_SINGLE):
+    """H(end) - H(start) in float64, NaN -> +inf; both kinetic energies in
+    one reduction over the (global) state."""
+    k0, k1 = layout.sums([r0 * r0 * inv_mass, r1 * r1 * inv_mass])
+    delta = (-lp1 + 0.5 * k1) - (-lp0 + 0.5 * k0)
     return torch.where(torch.isnan(delta), torch.full_like(delta, math.inf), delta)
 
 
-def _snapshot_transition(grad_fn, z, lp, g, eps, L_t, inv_mass, draws):
+def _snapshot_transition(grad_fn, z, lp, g, eps, L_t, inv_mass, draws, layout=_SINGLE):
     """One ChEES-path draw of L_t leapfrogs from momenta
     draws.momentum / sqrt(inv_mass) (hmc.py:192-229): a divergence is
     rejected and reported with accept probability 0. Returns (z, lp, g,
@@ -142,7 +212,7 @@ def _snapshot_transition(grad_fn, z, lp, g, eps, L_t, inv_mass, draws):
     zp, rp, gp, lpp = z, r0, g, lp
     for _ in range(L_t):
         zp, rp, gp, lpp = leapfrog(zp, rp, gp, eps, inv_mass, grad_fn)
-    delta = _energy_change(lp, r0, lpp, rp, inv_mass)
+    delta = _energy_change(lp, r0, lpp, rp, inv_mass, layout)
     diverging = delta > MAX_DELTA_ENERGY
     accept_prob = torch.where(diverging, torch.zeros_like(delta),
                               torch.clamp(torch.exp(-delta), max=1.0))
@@ -158,13 +228,16 @@ def _trajectory_steps(u, T, eps, cap):
     return torch.clamp(torch.ceil(u * T / eps), 1, cap).to(torch.int64)
 
 
-def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, draws, u_seq):
+def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, draws, u_seq,
+                  layout=_SINGLE):
     """ChEES/SNAPER warmup (hmc.py:234-336): dual averaging on the step size
     and Adam ascent on log T, T jittered by u_seq[i]. Returns (z, lp, g,
     eps, T, leapfrogs per chain); eps and T are 0-dim tensors in the state's
-    dtype, the adaptation runs in float64."""
+    dtype, the adaptation runs in float64. Under a chains `layout` z0 is the
+    rank's slice of the chain batch and every statistic across chains is
+    the global batch's (three all-reduces per draw)."""
     dtype = z0.dtype
-    num_chains = z0.shape[0]
+    num_chains = z0.shape[0] * layout.chains_size
     sqrt_inv_mass = torch.sqrt(inv_mass)
     w = 1.0 / sqrt_inv_mass  # whitening
     lp, g = grad_fn(z0)
@@ -174,27 +247,26 @@ def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, d
     log_eps, log_eps_avg, h_sum = le0, le0, torch.zeros((), **f64)
     log_T, log_T_avg = lT0, lT0
     m_adam, v_adam = torch.zeros((), **f64), torch.zeros((), **f64)
-    pc = z0[0] - z0[-1]  # initial direction from the chain spread
+    every = layout.gather_chains(z0)
+    pc = every[0] - every[-1]  # initial direction from the chain spread
     pc = pc / torch.clamp(torch.linalg.vector_norm(pc), min=1e-20)
     z, total = z0, 0
-
-    def centered(x):
-        return x - x.mean(dim=0, keepdim=True)
-
     for i in range(num_warmup):
         eps = torch.exp(log_eps).to(dtype)
         u = u_seq[i]
         L_t = int(_trajectory_steps(u, torch.exp(log_T).to(dtype), eps, L_cap))
         total += L_t
         z1, lp, g, accept, _, zp, rp = _snapshot_transition(grad_fn, z, lp, g, eps, L_t,
-                                                            inv_mass, draws)
-        xw_c, xwp_c = centered(z * w), centered(zp * w)
+                                                            inv_mass, draws, layout)
+        xw, xwp, x1w = z * w, zp * w, z1 * w
+        m_xw, m_xwp, m_x1w, accept_mean = layout.chain_means([xw, xwp, x1w, accept])
+        xw_c, xwp_c, x1w_c = xw - m_xw, xwp - m_xwp, x1w - m_x1w
         vw_p = (rp * inv_mass) * w  # whitened end velocity
         # Oja's rule on the post-accept batch: pc tracks the leading
         # eigenvector of the whitened posterior covariance (sums, not
         # matmuls, so TF32 cannot touch them)
-        x1w_c = centered(z1 * w)
-        cov_pc = torch.sum(x1w_c * torch.sum(x1w_c * pc, dim=1, keepdim=True), dim=0) / num_chains
+        (cov_sum,) = layout.chain_sums([x1w_c * torch.sum(x1w_c * pc, dim=1, keepdim=True)])
+        cov_pc = cov_sum / num_chains
         pc_new = pc + (3.0 / (i + 10.0)) * cov_pc
         pc = pc_new / torch.clamp(torch.linalg.vector_norm(pc_new), min=1e-20)
         # SNAPER criterion on the principal projection
@@ -203,9 +275,10 @@ def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, d
         projv = torch.sum(vw_p * pc, dim=1)
         h = proj1 * proj1 - proj0 * proj0
         dh = 2.0 * proj1 * projv
-        wsum = torch.clamp(torch.sum(accept), min=1e-6)
+        accept_sum, weighted = layout.chain_sums([accept, accept * h * dh])
+        wsum = torch.clamp(accept_sum, min=1e-6)
         # d/dlog T with the jitter chain rule (T_t = u T)
-        grad = torch.sum(accept * h * dh) / wsum * u * torch.exp(log_T)
+        grad = weighted / wsum * u * torch.exp(log_T)
         grad = torch.where(torch.isfinite(grad), grad, torch.zeros_like(grad))
         count = i + 1.0
         m_adam = ADAM_B1 * m_adam + (1 - ADAM_B1) * grad
@@ -216,13 +289,14 @@ def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, d
         log_T = torch.minimum(torch.maximum(log_T, torch.log(eps)), torch.log(eps * L_cap))
         eta = count ** (-DA_KAPPA)
         log_T_avg = eta * log_T + (1 - eta) * log_T_avg
-        log_eps, log_eps_avg, h_sum = dual_average(log_eps_avg, h_sum, torch.mean(accept), i,
+        log_eps, log_eps_avg, h_sum = dual_average(log_eps_avg, h_sum, accept_mean, i,
                                                    mu, target_accept)
         z = z1
     return z, lp, g, torch.exp(log_eps_avg).to(dtype), torch.exp(log_T_avg).to(dtype), total
 
 
-def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draws, u_seq):
+def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draws, u_seq,
+                  layout=_SINGLE):
     """The draws after the ChEES warmup (hmc.py:339-363): draw k takes
     clip(ceil(u_seq[k] T / eps), 1, L_static) leapfrogs, all read from the
     device at once. Returns (draws [num_draws, chains, D], accept, diverging,
@@ -232,7 +306,7 @@ def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draw
     accepts, divs = [], []
     for k in range(num_draws):
         z, lp, g, accept, div, _, _ = _snapshot_transition(grad_fn, z, lp, g, eps, steps[k],
-                                                           inv_mass, draws)
+                                                           inv_mass, draws, layout)
         out[k] = z
         accepts.append(accept)
         divs.append(div)
@@ -242,6 +316,15 @@ def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draw
 def _stack_np(rows, num_chains):
     """[chains, n] host array of n per-draw [chains] tensors."""
     return torch.stack(rows, dim=1).cpu().numpy() if rows else np.zeros((num_chains, 0))
+
+
+def _chain_stats(layout, accepts, divs, num_chains):
+    """(accept_prob [chains, n], divergences [chains]) of every chain of the
+    global batch, on every rank, from per-draw [its chains] tensors."""
+    if layout.chain_collectives:
+        accepts = [layout.gather_chains(a) for a in accepts]
+        divs = [layout.gather_chains(d.to(torch.int32)).bool() for d in divs]
+    return _stack_np(accepts, num_chains), _stack_np(divs, num_chains).sum(axis=1)
 
 
 def run_hmc(
@@ -261,6 +344,7 @@ def run_hmc(
     inv_mass=None,
     step_size0: float = 0.05,
     mesh=None,
+    dims=None,
     adapt_trajectory: bool = False,
     device="cuda",
     dtype=torch.float32,
@@ -273,103 +357,158 @@ def run_hmc(
     from ADVI). With adapt_trajectory=True the warmup adapts the trajectory
     length by ChEES/SNAPER and `num_leapfrog` is the cap on a draw's
     leapfrogs. Returns the post-warmup draws stacked [chains, num_draws, D].
-    `device` defaults to the card and must exist (utils/device.resolve_device).
+
+    `mesh` (a DeviceMesh; every rank calls with the same arguments): a
+    `chains` axis splits the chain batch over its ranks; a `genes` axis
+    needs `dims` and `data` and shards the state (sampler_density). Each
+    rank returns its own chains' draws in its local layout (`chains` and
+    `genes` say which); accept_prob and divergences cover every chain.
+    init_theta and inv_mass may be global or local. ChEES runs over a
+    `chains` axis, not a `genes` one (JAX's refusal). `device` defaults to
+    the card and must exist (utils/device.resolve_device).
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet (ROADMAP.md, queue 1, item 6)")
     device = resolve_device(device)
+    layout, grad_fn = sampler_density(log_density, data, mesh, dims, device, "run_hmc")
+    if adapt_trajectory and layout.genes is not None:
+        raise ValueError("adapt_trajectory is not supported with a 'genes' mesh axis (the "
+                         "trajectory-adaptive runner is flat-state only)")
     D = int(dim)
+    kw = dict(device=device, dtype=dtype)
+    d_local = D if layout.genes is None else layout.genes.dim
+    inv_mass = (torch.ones(d_local, **kw) if inv_mass is None
+                else layout.local(torch.as_tensor(inv_mass, **kw)))
+    if layout is _SINGLE:
+        draws = GeneratorDraws(generator, device, dtype)
+    else:
+        draws = LayoutDraws(generator, device, dtype, layout, num_chains, D)
+
+    length_gen = _length_generator(generator, device)
+    if adapt_trajectory:
+        z = _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout)
+        return _run_chees(grad_fn, z, inv_mass, math.log(10.0 * step_size0), num_warmup,
+                          num_draws, int(num_leapfrog), target_accept, draws, layout)
+    return _run_jittered(grad_fn, inv_mass, draws, layout, length_gen, num_chains=num_chains,
+                         num_warmup=num_warmup, num_draws=num_draws, num_leapfrog=num_leapfrog,
+                         jitter_low=jitter_low, target_accept=target_accept,
+                         init_theta=init_theta, init_jitter=init_jitter,
+                         step_size0=step_size0, D=D, kw=kw)
+
+
+def run_hmc_tree(log_density, dims, generator: torch.Generator, *, data, num_chains: int = 8,
+                 mesh=None, **kwargs) -> HMCResult:
+    """Jittered-trajectory HMC over a gene-shardable state (hmc.py:633-732
+    of the JAX package, whose state is a pytree): run_hmc on the model's
+    flat state, each rank of a `genes` mesh axis holding its local vector.
+    `log_density` is nb_model.flat_logp(dims): `f(theta, data, shard)`;
+    the other arguments are run_hmc's."""
+    return run_hmc(log_density, dims.dim, generator, data=data, num_chains=num_chains,
+                   mesh=mesh, dims=dims, **kwargs)
+
+
+def _length_generator(generator, device):
+    """The CPU generator of the trajectory lengths, seeded from `generator`."""
+    return torch.Generator().manual_seed(
+        int(torch.randint(2**62, (1,), generator=generator, device=device)))
+
+
+def _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout):
+    """The chains' start: uniform(-2, 2), or init_theta jittered by
+    init_jitter normals (the rank's chains and local coordinates under a
+    sharded layout)."""
+    c = draws.c1 - draws.c0 if isinstance(draws, LayoutDraws) else num_chains
+    d = D if layout.genes is None else layout.genes.dim
+    if init_theta is None:
+        return 4.0 * draws.init_uniform((c, d)) - 2.0
+    base = layout.local(torch.as_tensor(init_theta, **kw))
+    return base[None, :] + init_jitter * draws.momentum((c, d))
+
+
+def _run_jittered(grad_fn, inv_mass, draws, layout, length_gen, *, num_chains, num_warmup,
+                  num_draws, num_leapfrog, jitter_low, target_accept, init_theta, init_jitter,
+                  step_size0, D, kw) -> HMCResult:
+    """The plain sampler of run_hmc (hmc.py:91-180 of the JAX package): dual
+    averaging over the warmup, then the draws. Under a sharded `layout` the
+    state is the rank's [its chains, its coordinates]."""
     L = int(num_leapfrog)
     L_min = max(1, int(np.ceil(jitter_low * L)))
-    kw = dict(device=device, dtype=dtype)
-    inv_mass = (torch.ones(D, **kw) if inv_mass is None
-                else torch.as_tensor(inv_mass, **kw))
     sqrt_inv_mass = torch.sqrt(inv_mass)
-    length_gen = torch.Generator().manual_seed(
-        int(torch.randint(2**62, (1,), generator=generator, device=device))
-    )
-
-    if init_theta is None:
-        z = 4.0 * torch.rand((num_chains, D), generator=generator, **kw) - 2.0
-    else:
-        base = torch.as_tensor(init_theta, **kw)
-        z = base[None, :] + init_jitter * torch.randn((num_chains, D), generator=generator, **kw)
-
-    def grad_fn(x):
-        return logp_and_grad(log_density, x, data)
-
-    mu = math.log(10.0 * step_size0)
-    if adapt_trajectory:
-        return _run_chees(grad_fn, z, inv_mass, mu, num_warmup, num_draws, L, target_accept,
-                          GeneratorDraws(generator, device, dtype))
+    z = _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout)
+    n_local = z.shape[0]
 
     def transition(z, lp, g, eps):
         L_t = int(torch.randint(L_min, L + 1, (1,), generator=length_gen))
-        r0 = torch.randn(z.shape, generator=generator, **kw) / sqrt_inv_mass[None, :]
+        r0 = draws.momentum(z.shape) / sqrt_inv_mass[None, :]
         zp, rp, gp, lpp = z, r0, g, lp
         for _ in range(L_t):
             zp, rp, gp, lpp = leapfrog(zp, rp, gp, eps, inv_mass, grad_fn)
-        delta = _energy_change(lp, r0, lpp, rp, inv_mass)
+        delta = _energy_change(lp, r0, lpp, rp, inv_mass, layout)
         diverging = delta > MAX_DELTA_ENERGY
         accept_prob = torch.clamp(torch.exp(-delta), max=1.0)
-        u = torch.rand((num_chains,), generator=generator, **kw)
+        u = draws.uniform(n_local, "accept")
         take = (u < accept_prob) & ~diverging
         z = torch.where(take[:, None], zp, z)
         lp = torch.where(take, lpp, lp)
         g = torch.where(take[:, None], gp, g)
         return z, lp, g, accept_prob, diverging, L_t
 
+    mu = math.log(10.0 * step_size0)
     lp, g = grad_fn(z)
-    log_eps = torch.tensor(mu - math.log(10.0), device=device, dtype=torch.float64)
+    log_eps = torch.tensor(mu - math.log(10.0), device=kw["device"], dtype=torch.float64)
     log_eps_avg = log_eps.clone()
-    h_sum = torch.zeros((), device=device, dtype=torch.float64)
+    h_sum = torch.zeros((), device=kw["device"], dtype=torch.float64)
     executed = 0
     for i in range(num_warmup):
-        z, lp, g, accept, _, L_t = transition(z, lp, g, torch.exp(log_eps).to(dtype))
+        z, lp, g, accept, _, L_t = transition(z, lp, g, torch.exp(log_eps).to(kw["dtype"]))
         log_eps, log_eps_avg, h_sum = dual_average(
-            log_eps_avg, h_sum, torch.mean(accept), i, mu, target_accept
+            log_eps_avg, h_sum, layout.chains_mean(accept), i, mu, target_accept
         )
         executed += L_t
 
-    eps = torch.exp(log_eps_avg).to(dtype)
-    draws = torch.empty((num_draws, num_chains, D), **kw)
+    eps = torch.exp(log_eps_avg).to(kw["dtype"])
+    out = torch.empty((num_draws,) + tuple(z.shape), **kw)
     accepts, divs = [], []
     for k in range(num_draws):
         z, lp, g, accept, div, L_t = transition(z, lp, g, eps)
-        draws[k] = z
+        out[k] = z
         accepts.append(accept)
         divs.append(div)
         executed += L_t
 
+    accept_prob, divergences = _chain_stats(layout, accepts, divs, num_chains)
     return HMCResult(
-        draws=draws.transpose(0, 1).contiguous(),
-        accept_prob=_stack_np(accepts, num_chains),
-        divergences=_stack_np(divs, num_chains).sum(axis=1),
+        draws=out.transpose(0, 1).contiguous(),
+        accept_prob=accept_prob,
+        divergences=divergences,
         step_size=float(eps),
         num_leapfrog=executed * num_chains,
+        chains=None if layout is _SINGLE else (draws.c0, draws.c1),
+        genes=None if layout.genes is None else (layout.genes.g0, layout.genes.g1),
     )
 
 
-def _run_chees(grad_fn, z0, inv_mass, mu, num_warmup, num_draws, L_cap, target_accept, draws):
+def _run_chees(grad_fn, z0, inv_mass, mu, num_warmup, num_draws, L_cap, target_accept, draws,
+               layout=_SINGLE):
     """The adapt_trajectory=True branch of run_hmc (hmc.py:455-496): the
     ChEES warmup, then the draws at the smallest _L_BUCKETS cap that holds
     the adapted T / eps (L_cap if none)."""
     kw = dict(device=z0.device, dtype=z0.dtype)
-    num_chains = z0.shape[0]
+    num_chains = z0.shape[0] * layout.chains_size
     u_warm = torch.as_tensor(_halton_seq(num_warmup), **kw)
     z, lp, g, eps, T, warm_lf = _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap,
-                                              target_accept, draws, u_warm)
+                                              target_accept, draws, u_warm, layout)
     eps_f, T_f = float(eps), float(T)
     L_star = max(1, int(np.ceil(T_f / max(eps_f, 1e-12))))
     bucket = next((b for b in _L_BUCKETS if b >= min(L_star, L_cap)), L_cap)
     u_draws = torch.as_tensor(_halton_seq(num_draws, base=3), **kw)
     out, accepts, divs, samp_lf = _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws,
-                                                bucket, draws, u_draws)
+                                                bucket, draws, u_draws, layout)
+    accept_prob, divergences = _chain_stats(layout, accepts, divs, num_chains)
     return HMCResult(
         draws=out.transpose(0, 1).contiguous(),
-        accept_prob=_stack_np(accepts, num_chains),
-        divergences=_stack_np(divs, num_chains).sum(axis=1),
+        accept_prob=accept_prob,
+        divergences=divergences,
         step_size=eps_f,
         num_leapfrog=(warm_lf + samp_lf) * num_chains,
         trajectory_length=T_f,
+        chains=None if layout is _SINGLE else (draws.c0, draws.c1),
     )

@@ -29,6 +29,14 @@ differences (multinomial weights, accept statistics, the divergence test)
 are float64; the state, momenta and gradients are in the state's dtype.
 The random numbers come from a `draws` object (infer/hmc.GeneratorDraws by
 default), which a test can replace to replay another random stream.
+
+`run_nuts(mesh=, dims=)` shards the chains over a `chains` mesh axis, the
+genes over a `genes` axis, or both (nuts.py:528-560 of the JAX package;
+parallel/sharding.py). Every energy and U-turn dot product is then summed
+over the global state, one all-reduce per leaf for all of a leaf's dots;
+every "any chain still active" decision is taken over the global chain
+batch. Each chain adapts its own step size and mass, so no adaptation
+statistic crosses chains.
 """
 
 from __future__ import annotations
@@ -40,27 +48,30 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ppcseq_tpu_torch.infer.hmc import GeneratorDraws, leapfrog, logp_and_grad
+from ppcseq_tpu_torch.infer.hmc import (_SINGLE, GeneratorDraws, LayoutDraws, leapfrog,
+                                        sampler_density)
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 MAX_DELTA_ENERGY = 1000.0  # Stan's divergence threshold
 F64 = torch.float64
 
 
-def _dot(a, b):
-    """Per-chain dot product over the last axis, summed in float64."""
-    return torch.sum(a * b, dim=-1, dtype=F64)
-
-
-def _energy(logp, r, inv_mass):
+def _energy(logp, r, inv_mass, layout=_SINGLE):
     """-logp + 0.5 r' M^-1 r per chain, in float64."""
-    return -logp.to(F64) + 0.5 * _dot(r, inv_mass * r)
+    return -logp.to(F64) + 0.5 * layout.sums([r * (inv_mass * r)])[0]
 
 
-def _is_turning(r_sum, r_first, r_last, inv_mass):
+def _turning_products(r_sum, r_first, r_last, inv_mass):
+    """The generalized U-turn's two products rho * M^-1 r, each to be
+    summed over the last axis."""
+    return r_sum * (inv_mass * r_first), r_sum * (inv_mass * r_last)
+
+
+def _is_turning(r_sum, r_first, r_last, inv_mass, layout=_SINGLE):
     """Generalized U-turn: rho against the velocities at both subtree ends.
     Reduces over the last axis; the others broadcast."""
-    return (_dot(r_sum, inv_mass * r_first) <= 0) | (_dot(r_sum, inv_mass * r_last) <= 0)
+    to_first, to_last = layout.sums(_turning_products(r_sum, r_first, r_last, inv_mass))
+    return (to_first <= 0) | (to_last <= 0)
 
 
 def _leaf_to_ckpt(i: int) -> tuple[int, int]:
@@ -86,7 +97,8 @@ class _Counters:
     steps (each one batched leapfrog over all chains), host syncs, and the
     sum of the chains' tree depths over their transitions."""
 
-    def __init__(self):
+    def __init__(self, layout=_SINGLE):
+        self.layout = layout
         self.evals = 0
         self.leaf_steps = 0
         self.host_syncs = 0
@@ -94,8 +106,9 @@ class _Counters:
         self.transitions = 0
 
     def any(self, mask) -> bool:
+        """Whether any chain of the (global) batch has mask set."""
         self.host_syncs += 1
-        return bool(mask.any())
+        return self.layout.any(mask)
 
 
 def _build_subtree(grad_fn, z0, r0, g0, eps_signed, inv_mass, depth, energy0, active,
@@ -119,6 +132,7 @@ def _build_subtree(grad_fn, z0, r0, g0, eps_signed, inv_mass, depth, energy0, ac
     r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=r0.dtype, device=z0.device)
     r_sum_ckpts = torch.zeros_like(r_ckpts)
 
+    layout = counters.layout
     for i in range(1 << depth):
         m = active & ~turning & ~diverging
         # at leaf 0, m is `active`, which the caller found non-empty
@@ -127,7 +141,19 @@ def _build_subtree(grad_fn, z0, r0, g0, eps_signed, inv_mass, depth, energy0, ac
         z1, r1, g1, lp1 = leapfrog(z, r, g, eps_signed, inv_mass, grad_fn)
         counters.evals += 1
         counters.leaf_steps += 1
-        delta = _inf_for_nan(_energy(lp1, r1, inv_mass) - energy0)
+        # the leaf's dot products, in one reduction: its kinetic energy and,
+        # at an odd leaf, the U-turn tests against its checkpoints
+        r_sum1 = r_sum + r1
+        lo, hi = _leaf_to_ckpt(i)
+        if i % 2 == 0:
+            (kin,) = layout.sums([r1 * (inv_mass * r1)])
+        else:
+            rj = r_ckpts[:, lo:hi + 1]
+            block_sum = r_sum1[:, None, :] - r_sum_ckpts[:, lo:hi + 1] + rj
+            im = inv_mass[:, None, :]
+            kin, to_first, to_last = layout.sums(
+                [r1 * (inv_mass * r1), *_turning_products(block_sum, rj, r1[:, None, :], im)])
+        delta = _inf_for_nan((-lp1.to(F64) + 0.5 * kin) - energy0)
         log_w = -delta
         accept = torch.exp(log_w).clamp_(max=1.0)
         new_total = torch.logaddexp(log_weight, log_w)
@@ -136,18 +162,13 @@ def _build_subtree(grad_fn, z0, r0, g0, eps_signed, inv_mass, depth, energy0, ac
         logp_prop = torch.where(take, lp1, logp_prop)
         g_prop = _where(take, g1, g_prop)
 
-        r_sum1 = r_sum + r1
-        lo, hi = _leaf_to_ckpt(i)
         if i % 2 == 0:
             mc = m.view(C, 1)
             r_ckpts[:, hi] = torch.where(mc, r1, r_ckpts[:, hi])
             r_sum_ckpts[:, hi] = torch.where(mc, r_sum1, r_sum_ckpts[:, hi])
             turned = torch.zeros_like(turning)
         else:
-            rj = r_ckpts[:, lo:hi + 1]
-            block_sum = r_sum1[:, None, :] - r_sum_ckpts[:, lo:hi + 1] + rj
-            turned = torch.any(_is_turning(block_sum, rj, r1[:, None, :], inv_mass[:, None, :]),
-                               dim=1)
+            turned = torch.any((to_first <= 0) | (to_last <= 0), dim=1)
 
         z, r, g = _where(m, z1, z), _where(m, r1, r), _where(m, g1, g)
         log_weight = torch.where(m, new_total, log_weight)
@@ -167,10 +188,11 @@ def _nuts_transition(grad_fn, z, logp, grad, eps, inv_mass, max_depth, draws, co
     Returns (z, logp, grad, stats) with stats accept_prob, diverging,
     num_steps and depth, each [chains]."""
     counters = counters or _Counters()
+    layout = counters.layout
     C = z.shape[0]
     dev = z.device
     r0 = draws.momentum(z.shape) / torch.sqrt(inv_mass)
-    energy0 = _energy(logp, r0, inv_mass)
+    energy0 = _energy(logp, r0, inv_mass, layout)
     eps_col = eps.to(z.dtype).view(C, 1)
 
     zl, rl, gl = z, r0, grad
@@ -209,7 +231,7 @@ def _nuts_transition(grad_fn, z, logp, grad, eps, inv_mass, max_depth, draws, co
         g_prop = _where(take, sub["grad_prop"], g_prop)
 
         r_sum_new = r_sum + sub["r_sum"]
-        turned = sub["turning"] | _is_turning(r_sum_new, rl, rr, inv_mass)
+        turned = sub["turning"] | _is_turning(r_sum_new, rl, rr, inv_mass, layout)
         r_sum = _where(building, r_sum_new, r_sum)
         turning = torch.where(building, turned, turning)
         diverging = torch.where(building, sub["diverging"], diverging)
@@ -316,12 +338,13 @@ def _find_eps(grad_fn, z, lp, g, mass0, draws, counters):
     momentum draw for all eight; clipped to [1e-6, 10]."""
     C = z.shape[0]
     r = draws.momentum(z.shape) / torch.sqrt(mass0)
-    e0 = _energy(lp, r, mass0)
+    e0 = _energy(lp, r, mass0, counters.layout)
     eps = torch.full((C,), 0.1, dtype=z.dtype, device=z.device)
     for _ in range(8):
         _, r1, _, lp1 = leapfrog(z, r, g, eps.view(C, 1), mass0, grad_fn)
         counters.evals += 1
-        delta = torch.nan_to_num(e0 - _energy(lp1, r1, mass0), nan=-math.inf, posinf=math.inf,
+        delta = torch.nan_to_num(e0 - _energy(lp1, r1, mass0, counters.layout), nan=-math.inf,
+                                 posinf=math.inf,
                                  neginf=-math.inf)
         eps = torch.where(delta > math.log(0.8), eps * 2.0, eps * 0.5)
     return torch.clamp(eps, 1e-6, 10.0)
@@ -339,6 +362,10 @@ class NUTSResult:
     num_evals: int = 0  # batched log-density + gradient calls (B = chains each)
     host_syncs: int = 0  # device reads that decided the loops
     mean_depth: float = 0.0  # tree depth per chain and transition
+    # a sharded run's draws and inv_mass are the rank's own: chains [c0, c1)
+    # and, under a genes axis, genes [g0, g1) in its local layout
+    chains: tuple[int, int] | None = None
+    genes: tuple[int, int] | None = None
 
 
 def run_nuts(
@@ -370,34 +397,44 @@ def run_nuts(
     inv_mass_init (ones by default). `generator` (on `device`) drives every
     random number. `device` defaults to the card and must exist
     (utils/device.resolve_device).
+
+    `mesh`: a DeviceMesh with a `chains` axis (the chain batch split over
+    its ranks) and/or a `genes` axis. A `genes` axis needs `dims` and
+    `data`, and `log_density` is then nb_model.flat_logp(dims): `f(theta,
+    data, shard)` over a rank's local vector. init_theta and inv_mass_init
+    may be global or local. Each rank returns its own chains' draws in its
+    local layout and its inv_mass; accept_prob, divergences and step_size
+    cover every chain.
     """
-    if mesh is not None or dims is not None:
-        raise NotImplementedError(
-            "mesh and dims= (sharded NUTS) are not ported yet (ROADMAP.md, queue 1, item 6)")
     if not isinstance(dim, (int, np.integer)):
         raise NotImplementedError(
-            "only a flat state of int dim is ported; a pytree prototype is not "
-            "(ROADMAP.md, queue 1, item 6)")
+            "only a flat state of int dim is ported; a pytree prototype is not: a gene "
+            "shard's state is a local flat vector (parallel/sharding.py)")
     device = resolve_device(device)
     D = int(dim)
     kw = dict(device=device, dtype=dtype)
-    draws = GeneratorDraws(generator, device, dtype)
-    if init_theta is None:
-        z = (2.0 * init_scale) * torch.rand((num_chains, D), generator=generator, **kw) - init_scale
+    layout, grad_fn = sampler_density(log_density, data, mesh, dims, device, "run_nuts")
+    shard = layout.genes
+    if layout is _SINGLE:
+        draws = GeneratorDraws(generator, device, dtype)
+        n_local = num_chains
     else:
-        base = torch.as_tensor(init_theta, **kw)
-        z = base[None, :] + init_jitter * torch.randn((num_chains, D), generator=generator, **kw)
-    mass0 = (torch.ones(D, **kw) if inv_mass_init is None
-             else torch.as_tensor(inv_mass_init, **kw))
-    inv_mass = mass0.expand(num_chains, D).contiguous()
+        draws = LayoutDraws(generator, device, dtype, layout, num_chains, D)
+        n_local = draws.c1 - draws.c0
+    d_local = D if shard is None else shard.dim
+    if init_theta is None:
+        z = (2.0 * init_scale) * draws.init_uniform((n_local, d_local)) - init_scale
+    else:
+        base = layout.local(torch.as_tensor(init_theta, **kw))
+        z = base[None, :] + init_jitter * draws.momentum((n_local, d_local))
+    mass0 = (torch.ones(d_local, **kw) if inv_mass_init is None
+             else layout.local(torch.as_tensor(inv_mass_init, **kw)))
+    inv_mass = mass0.expand(n_local, d_local).contiguous()
 
-    def grad_fn(x):
-        return logp_and_grad(log_density, x, data)
-
-    counters = _Counters()
+    counters = _Counters(layout)
     lp, g = grad_fn(z)
     counters.evals += 1
-    steps = torch.zeros(num_chains, dtype=torch.int64, device=device)  # each chain's leapfrogs
+    steps = torch.zeros(n_local, dtype=torch.int64, device=device)  # each chain's leapfrogs
 
     # ---- warmup (nuts.py:401-456) ----
     schedule, metric_start, term_buffer = build_warmup_schedule(num_warmup)
@@ -419,7 +456,7 @@ def run_nuts(
     eps = torch.exp(da.log_eps_avg)
 
     # ---- sampling (nuts.py:458-468) ----
-    out = torch.empty((num_draws, num_chains, D), **kw)
+    out = torch.empty((num_draws, n_local, d_local), **kw)
     accepts, divs = [], []
     for k in range(num_draws):
         z, lp, g, stats = _nuts_transition(grad_fn, z, lp, g, eps, inv_mass, max_depth, draws,
@@ -429,8 +466,18 @@ def run_nuts(
         divs.append(stats["diverging"])
         steps = steps + stats["num_steps"]
 
-    accept = torch.stack(accepts, dim=1) if accepts else torch.zeros((num_chains, 0))
-    div = torch.stack(divs, dim=1) if divs else torch.zeros((num_chains, 0), dtype=torch.bool)
+    accept = torch.stack(accepts, dim=1) if accepts else torch.zeros((n_local, 0), device=device)
+    div = (torch.stack(divs, dim=1) if divs
+           else torch.zeros((n_local, 0), dtype=torch.bool, device=device))
+    depth_sum, transitions = counters.depth_sum, counters.transitions
+    if layout.chain_collectives:  # every chain's statistics on every rank
+        accept = layout.gather_chains(accept)
+        div = layout.gather_chains(div.to(torch.int32)).bool()
+        eps = layout.gather_chains(eps)
+        steps = layout.gather_chains(steps)
+        depth_sum = layout.gather_chains(torch.as_tensor(depth_sum, dtype=F64,
+                                                         device=device).reshape(1)).sum()
+        transitions *= layout.chains_size
     return NUTSResult(
         draws=out.transpose(0, 1).contiguous(),
         accept_prob=accept.cpu().numpy(),
@@ -441,5 +488,7 @@ def run_nuts(
         lockstep_leapfrog=counters.leaf_steps * num_chains,
         num_evals=counters.evals,
         host_syncs=counters.host_syncs,
-        mean_depth=float(counters.depth_sum) / max(counters.transitions, 1),
+        mean_depth=float(depth_sum) / max(transitions, 1),
+        chains=None if layout is _SINGLE else (draws.c0, draws.c1),
+        genes=None if shard is None else (shard.g0, shard.g1),
     )

@@ -1,10 +1,10 @@
 """The hierarchical negative-binomial GLM as a batched torch log-joint.
 
-A port of ppcseq_tpu/model/nb_model.py (flat state, centered
-parametrization, delta-form likelihood). See that module for the model
-(reference inst/stan/negBinomial_MPI.stan): parameters, transforms,
-priors with the double lambda_mu_mu shift, the masked NB2-log likelihood
-and the pad pseudo-prior.
+A port of ppcseq_tpu/model/nb_model.py (flat state, the centered and the
+non-centered parametrization, delta-form likelihood). See that module for
+the model (reference inst/stan/negBinomial_MPI.stan): parameters,
+transforms, priors with the double lambda_mu_mu shift, the masked NB2-log
+likelihood and the pad pseudo-prior.
 
 Differences in form, not in math:
 - `theta` carries a leading batch axis: `log_joint(theta[B, D]) -> [B]`,
@@ -18,6 +18,12 @@ Differences in form, not in math:
   "plain" is torch autograd through `masked_likelihood`; "pallas" and
   "pallas_fused" are the stable form (K5 under grad, K4 under no_grad) and
   the one-pass K3.
+- A gene shard (parallel/sharding.GeneShard) evaluates the same log joint
+  on its own genes: `log_joint(..., shard=)` sums the per-gene terms over
+  the shard's genes and adds the terms that appear once (the hyperpriors,
+  the log-Jacobian, the checked-gene slope priors) on the shard of genes
+  rank 0 only, so the shards' values and gradients sum to the unsharded
+  ones.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.model.params import theta_to_tree
+from ppcseq_tpu_torch.model.params import offsets as _offsets
 from ppcseq_tpu_torch.ops import nb_kernel
 from ppcseq_tpu_torch.ops.nb import (
     _softplus,
@@ -43,10 +51,6 @@ from ppcseq_tpu_torch.ops.nb import (
 from ppcseq_tpu_torch.utils.constants import LAMBDA_MU_MU
 from ppcseq_tpu_torch.utils.device import resolve_device
 
-_SCALARS = ("lambda_mu", "lambda_sigma", "lambda_skew", "sigma_slope",
-            "sigma_intercept", "sigma_sigma")
-
-
 @dataclass(frozen=True)
 class ModelDims:
     """Static dimensions of one fit."""
@@ -56,6 +60,10 @@ class ModelDims:
     C: int  # design-matrix columns
     n_check: int  # genes under test; G indices [0, n_check)
     G_unpadded: int  # real genes; [G_unpadded, G) are padding
+    # Non-centered gene hierarchy: the intercept/sigma_raw coordinates hold
+    # standardized residuals and unpack rebuilds the centered values (the
+    # same posterior over the constrained parameters, without the funnel)
+    non_centered: bool = False
 
     @property
     def n_alpha2(self) -> int:
@@ -67,72 +75,65 @@ class ModelDims:
         return 6 + 2 * self.G + self.n_check + self.n_alpha2
 
 
-def _offsets(d: ModelDims):
-    """Offsets into the flat unconstrained vector (same layout as JAX)."""
-    o = {}
-    pos = 0
-    for name, size in [
-        ("lambda_mu", 1),
-        ("lambda_sigma", 1),
-        ("lambda_skew", 1),
-        ("sigma_slope", 1),
-        ("sigma_intercept", 1),
-        ("sigma_sigma", 1),
-        ("intercept", d.G),
-        ("sigma_raw", d.G),
-        ("alpha_sub_1", d.n_check),
-        ("alpha_2", d.n_alpha2),
-    ]:
-        o[name] = (pos, pos + size)
-        pos += size
-    return o
+def unpack_tree(tree: dict, non_centered: bool = False) -> tuple[dict, torch.Tensor]:
+    """Unconstrained tree -> constrained parameters + log-Jacobian [...].
 
-
-def theta_to_tree(theta: torch.Tensor, dims: ModelDims) -> dict:
-    """theta[..., D] -> dict of views: scalars [...], vectors [..., n]."""
-    o = _offsets(dims)
-    tree = {n: theta[..., o[n][0]] for n in _SCALARS}
-    for n in ("intercept", "sigma_raw", "alpha_sub_1"):
-        tree[n] = theta[..., o[n][0]:o[n][1]]
-    if dims.C > 2:
-        lo, hi = o["alpha_2"]
-        tree["alpha_2"] = theta[..., lo:hi].reshape(theta.shape[:-1] + (dims.C - 2, dims.n_check))
-    return tree
-
-
-def unpack(theta: torch.Tensor, dims: ModelDims) -> tuple[dict, torch.Tensor]:
-    """theta[..., D] -> constrained parameters + log-Jacobian [...]."""
-    tree = theta_to_tree(theta, dims)
+    With non_centered=True the intercept/sigma_raw leaves are standardized
+    residuals: intercept = (lambda_mu + lambda_mu_mu) + lambda_sigma * t_i,
+    sigma_raw = sigma_slope * intercept + sigma_intercept + sigma_sigma * t_s
+    (nb_model.py:140-180 of the JAX package).
+    """
+    lambda_mu = tree["lambda_mu"] + LAMBDA_MU_MU
+    lambda_sigma = torch.exp(tree["lambda_sigma"])
+    sigma_slope = -torch.exp(tree["sigma_slope"])
+    sigma_sigma = torch.exp(tree["sigma_sigma"])
+    if non_centered:
+        col = lambda v: v.unsqueeze(-1)  # noqa: E731  [...] -> [..., 1]
+        intercept = col(lambda_mu + LAMBDA_MU_MU) + col(lambda_sigma) * tree["intercept"]
+        sigma_raw = (col(sigma_slope) * intercept + col(tree["sigma_intercept"])
+                     + col(sigma_sigma) * tree["sigma_raw"])
+    else:
+        intercept = tree["intercept"]
+        sigma_raw = tree["sigma_raw"]
+    a1 = tree["alpha_sub_1"]
     params = {
-        "lambda_mu": tree["lambda_mu"] + LAMBDA_MU_MU,
-        "lambda_sigma": torch.exp(tree["lambda_sigma"]),
+        "lambda_mu": lambda_mu,
+        "lambda_sigma": lambda_sigma,
         "lambda_skew": tree["lambda_skew"],
-        "sigma_slope": -torch.exp(tree["sigma_slope"]),
+        "sigma_slope": sigma_slope,
         "sigma_intercept": tree["sigma_intercept"],
-        "sigma_sigma": torch.exp(tree["sigma_sigma"]),
-        "intercept": tree["intercept"],
-        "sigma_raw": tree["sigma_raw"],
-        "alpha_sub_1": tree["alpha_sub_1"],
-        "alpha_2": tree.get(
-            "alpha_2", theta.new_zeros(theta.shape[:-1] + (0, dims.n_check))
-        ),
+        "sigma_sigma": sigma_sigma,
+        "intercept": intercept,
+        "sigma_raw": sigma_raw,
+        "alpha_sub_1": a1,
+        "alpha_2": tree.get("alpha_2", a1.new_zeros(a1.shape[:-1] + (0, a1.shape[-1]))),
     }
     log_jac = tree["lambda_sigma"] + tree["sigma_slope"] + tree["sigma_sigma"]
     return params, log_jac
 
 
-def make_alpha(params: dict, dims: ModelDims) -> torch.Tensor:
-    """alpha[..., C, G]: merge_coefficients with zero-padding (stan:122-139)."""
-    G, C, K = dims.G, dims.C, dims.n_check
+def unpack(theta: torch.Tensor, dims: ModelDims) -> tuple[dict, torch.Tensor]:
+    """theta[..., D] -> constrained parameters + log-Jacobian [...]."""
+    return unpack_tree(theta_to_tree(theta, dims), dims.non_centered)
+
+
+def make_alpha(params: dict, dims: ModelDims, checked=None) -> torch.Tensor:
+    """alpha[..., C, G]: merge_coefficients with zero-padding (stan:122-139).
+
+    G is the intercept's length. `checked` = (k0, k1) are the checked genes
+    among them, as indices into alpha_sub_1 (the whole block by default; a
+    gene shard's own range, which starts at its first gene)."""
+    C = dims.C
+    k0, k1 = (0, dims.n_check) if checked is None else checked
     icpt = params["intercept"]
-    batch = icpt.shape[:-1]
+    batch, G = icpt.shape[:-1], icpt.shape[-1]
     rows = [icpt.unsqueeze(-2)]
     if C >= 2:
-        pad = icpt.new_zeros(batch + (1, G - K))
-        rows.append(torch.cat([params["alpha_sub_1"].unsqueeze(-2), pad], dim=-1))
+        pad = icpt.new_zeros(batch + (1, G - (k1 - k0)))
+        rows.append(torch.cat([params["alpha_sub_1"][..., k0:k1].unsqueeze(-2), pad], dim=-1))
     if C >= 3:
-        pad = icpt.new_zeros(batch + (C - 2, G - K))
-        rows.append(torch.cat([params["alpha_2"], pad], dim=-1))
+        pad = icpt.new_zeros(batch + (C - 2, G - (k1 - k0)))
+        rows.append(torch.cat([params["alpha_2"][..., k0:k1], pad], dim=-1))
     return torch.cat(rows, dim=-2)
 
 
@@ -185,6 +186,7 @@ def prepare_data(
     n_check: int,
     exclude_mask: np.ndarray | None = None,
     pad_genes_to: int | None = None,
+    non_centered: bool = False,
     device="cuda",
     dtype=torch.float32,
 ) -> tuple[ModelData, ModelDims]:
@@ -202,7 +204,8 @@ def prepare_data(
     like = np.tile(gene_mask[None, :], (S, 1))
     if exclude_mask is not None:
         like[:, :G_real] *= ~np.asarray(exclude_mask, dtype=bool)
-    dims = ModelDims(S=S, G=G, C=X.shape[1], n_check=n_check, G_unpadded=G_real)
+    dims = ModelDims(S=S, G=G, C=X.shape[1], n_check=n_check, G_unpadded=G_real,
+                     non_centered=non_centered)
     data = upload(
         {"counts": counts_p, "X": X, "exposure_rate": exposure_rate,
          "like_mask": like, "gene_mask": gene_mask},
@@ -308,63 +311,84 @@ def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
                      dtype=torch.float64)
 
 
-def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims, *,
-              likelihood_fn=None) -> torch.Tensor:
-    """Unnormalized log posterior in unconstrained space: theta[B, D] -> [B].
+def log_joint_tree(tree: dict, data: ModelData, dims: ModelDims, *, likelihood_fn=None,
+                   shard=None) -> torch.Tensor:
+    """Unnormalized log posterior in unconstrained space from a tree of
+    leaves with a batch axis [B] (model/params.py) -> [B].
 
-    The terms are evaluated in theta's dtype and summed in float64, so the
-    result is float64 whatever theta's dtype: at -3e7 a float32 sum would
+    The terms are evaluated in the leaves' dtype and summed in float64, so
+    the result is float64 whatever their dtype: at -3e7 a float32 sum would
     round energy differences to nats. `likelihood_fn(data, alpha[B, C, G],
     log_phi[B, G]) -> [B]` picks the likelihood; None takes the default
-    route, nb_kernel.nb_glm_likelihood_fast.
+    route, nb_kernel.nb_glm_likelihood_fast. With `shard` (a
+    parallel.sharding.GeneShard; `data` then holds its genes) this is the
+    shard's local part: per-gene terms over its genes, and the terms that
+    appear once only on genes rank 0.
     """
-    params, log_jac = unpack(theta, dims)
+    params, log_jac = unpack_tree(tree, dims.non_centered)
     gm = data.gene_mask
     col = lambda v: v.unsqueeze(-1)  # noqa: E731  [B] -> [B, 1] against [B, G]
     f64 = torch.float64
+    once = shard is None or shard.rank == 0
 
     def total(x, dim=-1):
         return torch.sum(x, dim=dim, dtype=f64)
 
-    lp = log_jac.to(f64)
-    # Hyperpriors (stan:210-216)
-    for name, loc, scale in (("lambda_mu", LAMBDA_MU_MU, 2.0), ("lambda_sigma", 0.0, 2.0),
-                             ("lambda_skew", 0.0, 1.0), ("sigma_intercept", 0.0, 2.0),
-                             ("sigma_slope", 0.0, 2.0), ("sigma_sigma", 0.0, 2.0)):
-        lp = lp + normal_lpdf(params[name], loc, scale).to(f64)
+    lp = log_jac.to(f64) if once else torch.zeros(log_jac.shape, dtype=f64, device=gm.device)
+    if once:
+        # Hyperpriors (stan:210-216)
+        for name, loc, scale in (("lambda_mu", LAMBDA_MU_MU, 2.0), ("lambda_sigma", 0.0, 2.0),
+                                 ("lambda_skew", 0.0, 1.0), ("sigma_intercept", 0.0, 2.0),
+                                 ("sigma_slope", 0.0, 2.0), ("sigma_sigma", 0.0, 2.0)):
+            lp = lp + normal_lpdf(params[name], loc, scale).to(f64)
 
-    # Gene-wise priors, with the double lambda_mu_mu shift (stan:219)
-    lp = lp + total(
-        gm * skew_normal_lpdf(
-            params["intercept"],
-            col(params["lambda_mu"] + LAMBDA_MU_MU),
-            col(params["lambda_sigma"]),
-            col(params["lambda_skew"]),
+    if dims.non_centered:
+        # Standardized-residual priors; unpack_tree rebuilds the centered
+        # values. The same posterior as the centered form (stan:219, 223).
+        lp = lp + total(gm * skew_normal_lpdf(tree["intercept"], 0.0, 1.0,
+                                              col(params["lambda_skew"])))
+        lp = lp + total(gm * normal_lpdf(tree["sigma_raw"], 0.0, 1.0))
+    else:
+        # Gene-wise priors, with the double lambda_mu_mu shift (stan:219)
+        lp = lp + total(
+            gm * skew_normal_lpdf(
+                params["intercept"],
+                col(params["lambda_mu"] + LAMBDA_MU_MU),
+                col(params["lambda_sigma"]),
+                col(params["lambda_skew"]),
+            )
         )
-    )
-    # Mean-overdispersion trend (stan:223)
-    lp = lp + total(
-        gm * normal_lpdf(
-            params["sigma_raw"],
-            col(params["sigma_slope"]) * params["intercept"] + col(params["sigma_intercept"]),
-            col(params["sigma_sigma"]),
+        # Mean-overdispersion trend (stan:223)
+        lp = lp + total(
+            gm * normal_lpdf(
+                params["sigma_raw"],
+                col(params["sigma_slope"]) * params["intercept"] + col(params["sigma_intercept"]),
+                col(params["sigma_sigma"]),
+            )
         )
-    )
-    if dims.C >= 2:
+    if once and dims.C >= 2:
         lp = lp + total(double_exponential_lpdf(params["alpha_sub_1"], 0.0, 1.0))
-    if dims.C >= 3:
+    if once and dims.C >= 3:
         lp = lp + total(normal_lpdf(params["alpha_2"], 0.0, 2.5), dim=(-2, -1))
 
     # Pseudo-prior keeping padded-gene coordinates well-conditioned
     pad = 1.0 - gm
-    lp = lp + total(pad * normal_lpdf(params["intercept"], 0.0, 1.0))
-    lp = lp + total(pad * normal_lpdf(params["sigma_raw"], 0.0, 1.0))
+    lp = lp + total(pad * normal_lpdf(tree["intercept"], 0.0, 1.0))
+    lp = lp + total(pad * normal_lpdf(tree["sigma_raw"], 0.0, 1.0))
 
     # Likelihood (stan:97-115): log phi = -sigma_raw (stan:203)
-    alpha = make_alpha(params, dims)
+    alpha = make_alpha(params, dims, None if shard is None else shard.checked)
     if likelihood_fn is None:
         likelihood_fn = nb_kernel.nb_glm_likelihood_fast
     return lp + likelihood_fn(data, alpha, -params["sigma_raw"]).to(f64)
+
+
+def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims, *,
+              likelihood_fn=None, shard=None) -> torch.Tensor:
+    """log_joint_tree on a flat state theta[B, D] -> [B]; with `shard`,
+    theta is the shard's local vector (parallel/sharding.py)."""
+    tree = theta_to_tree(theta, dims if shard is None else shard.local_dims)
+    return log_joint_tree(tree, data, dims, likelihood_fn=likelihood_fn, shard=shard)
 
 
 def make_log_density(data: ModelData, dims: ModelDims, likelihood_fn=None):
@@ -400,11 +424,16 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     baseline ignored),
     "pallas_fused" (nb_kernel.nb_glm_likelihood_fused: K3, needs a
     baseline), or "auto" (= "fast" on every device).
+
+    With `shard` (a parallel.sharding.GeneShard) theta is the shard's local
+    flat vector and data its genes, and f is the shard's local part of the
+    log joint (the counterpart of JAX's tree_logp, nb_model.py:833-875), so
+    every route also runs per shard.
     """
     lfn = _resolve_likelihood_fn("fast" if likelihood == "auto" else likelihood)
 
-    def f(theta, data):
-        return log_joint(theta, data, dims, likelihood_fn=lfn)
+    def f(theta, data, shard=None):
+        return log_joint(theta, data, dims, likelihood_fn=lfn, shard=shard)
 
     return f
 
@@ -426,7 +455,7 @@ def extract_alpha_sub_1_draws(thetas: torch.Tensor, dims: ModelDims) -> torch.Te
     return thetas[:, lo:hi]
 
 
-def smart_init(data: ModelData, dims: ModelDims) -> np.ndarray:
+def smart_init(data: ModelData, dims: ModelDims):
     """Data-driven initialization point in unconstrained space (float64).
 
     Pure NumPy on `data.host` (the arrays that were uploaded): per-gene
@@ -488,4 +517,14 @@ def smart_init(data: ModelData, dims: ModelDims) -> np.ndarray:
     if dims.C >= 3:
         lo, hi = o["alpha_2"]
         theta[lo:hi] = beta[2:, : dims.n_check].reshape(-1)
+
+    if dims.non_centered:
+        # the centered estimates as standardized residuals
+        ic = theta[o["intercept"][0] : o["intercept"][1]]
+        sr = theta[o["sigma_raw"][0] : o["sigma_raw"][1]]
+        t_i = (ic - lam_mu) / lam_sd
+        t_s = (sr - (s_int + s_slope * ic)) / s_sigma
+        theta[o["intercept"][0] : o["intercept"][1]] = np.where(real, t_i, 0.0)
+        theta[o["sigma_raw"][0] : o["sigma_raw"][1]] = np.where(real, t_s, 0.0)
+
     return theta

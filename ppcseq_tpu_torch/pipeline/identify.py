@@ -15,8 +15,14 @@ R/methods.R:74-367).
   5. merge into a per-transcript nested result (R/methods.R:344-365)
 
 The fits and the posterior-predictive simulation run on one explicit
-`device`; meshes are not ported yet. Each pass can be checkpointed and
-resumed (utils/checkpoint.py).
+`device`. With a `mesh` (a torch.distributed DeviceMesh, every rank calling
+with the same arguments) the fits run sharded: a `genes` axis splits the
+model data and the per-gene parameters (VB, jittered HMC and NUTS on each
+rank's local state, parallel/sharding.py), a `chains` axis the chain batch
+of the MCMC fits. The draws that the CIs need are then gathered to every
+rank, which computes the same table from the same seed. Each pass can be
+checkpointed and resumed (utils/checkpoint.py); with a mesh the global rank
+0 writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from __future__ import annotations
 import functools
 import json
 import os
-from dataclasses import dataclass, field
+import warnings
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import numpy as np
@@ -39,15 +46,14 @@ from ppcseq_tpu_torch.infer.diagnostics import summarize
 from ppcseq_tpu_torch.infer.hmc import run_hmc
 from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
+from ppcseq_tpu_torch.model.params import SCALAR_NAMES
 from ppcseq_tpu_torch.norm.tmm import sample_scaling
+from ppcseq_tpu_torch.parallel import sharding
 from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
 from ppcseq_tpu_torch.utils import checkpoint as ckpt
 from ppcseq_tpu_torch.utils import constants as K
 from ppcseq_tpu_torch.utils.device import resolve_device, working_dtype
 from ppcseq_tpu_torch.utils.log import breadcrumb, timed
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
 
 
 @dataclass
@@ -111,6 +117,7 @@ def do_inference(
     mcmc_sampler: str = "hmc",
     hmc_adapt_trajectory: bool = False,
     cores: int | None = None,
+    mesh=None,
     device="cuda",
     dtype=torch.float32,
 ) -> InferenceResult:
@@ -119,10 +126,36 @@ def do_inference(
     False, jittered HMC (ChEES with hmc_adapt_trajectory) or NUTS from an
     ADVI warm start; NUTS takes its chain count from the draws and `cores`
     (default os.cpu_count()). `device` defaults to the card and must exist
-    (utils/device.resolve_device)."""
+    (utils/device.resolve_device).
+
+    `mesh` (identify.py:122-182 of the JAX package):
+    - a `genes` axis: the gene count is padded to a multiple of the axis,
+      each rank holds its genes of the model data and of the per-gene
+      parameters, and every fit (VB, the ADVI warm start, jittered HMC,
+      NUTS at 4 chains, as JAX's identify.py:567-586) runs on the local
+      state, the map_rect analog inside the product;
+    - a `chains` axis alone: the MCMC fits split their chain batch (the ADVI
+      warm start runs whole on every rank); a VB fit runs whole on every
+      rank, with a warning;
+    - both: gene-sharded with the chain batch split too.
+    """
     if not approximate_posterior_inference:
         _check_sampler(mcmc_sampler)
     device = resolve_device(device)
+    axes = _mesh_axes(mesh, device)
+    mesh_genes, mesh_chains = "genes" in axes, "chains" in axes
+    if mesh_chains and not mesh_genes and approximate_posterior_inference:
+        warnings.warn(
+            "mesh with a 'chains' axis has no effect on the variational fit "
+            "(it is a single small optimization): the fits will run whole on every "
+            "rank. Use a 'genes' axis to shard VB, or "
+            "approximate_posterior_inference=False for chain-sharded MCMC.",
+            stacklevel=3,
+        )
+    if mesh_genes and not approximate_posterior_inference and hmc_adapt_trajectory:
+        raise ValueError(
+            "hmc_adapt_trajectory is not supported with a 'genes' mesh axis "
+            "(the trajectory-adaptive runner is flat-state only)")
     if cores is None:
         cores = os.cpu_count() or 1
     breadcrumb("executing do_inference")
@@ -132,14 +165,18 @@ def do_inference(
             X, sorted_sample_names, exposure_by_sample,
             exclude=to_exclude,
         )
+        # a gene-sharded fit pads G to a multiple of the axis and prepares
+        # on the host: smart_init and the baseline need every gene, the card
+        # only the rank's own
+        pad_to = sharding.pad_genes(md.counts.shape[1], axes["genes"]) if mesh_genes else None
         data, dims = nb_model.prepare_data(
             md.counts, md.X, md.exposure_rate, md.n_check,
-            exclude_mask=md.exclude_mask, device=device, dtype=dtype,
+            exclude_mask=md.exclude_mask, pad_genes_to=pad_to,
+            device="cpu" if mesh_genes else device, dtype=dtype,
         )
         # delta-form likelihood baseline (float32-smooth evaluation)
         data = nb_model.with_baseline(data, dims)
         init = nb_model.smart_init(data, dims)
-    logp = functools.partial(nb_model.flat_logp(dims), data=data)
 
     # If CI analysis is approximated, only ~1000 actual draws are needed
     # (reference R/utilities.R:1372)
@@ -149,30 +186,48 @@ def do_inference(
         else int(np.ceil(how_many_posterior_draws))
     )
     g_fit, g_draws, g_ci = seed_generators(seed, device)
+    # the posterior columns the CIs read: every coordinate when the caller
+    # keeps parameter draws, else the checked block alone (what a sharded
+    # fit gathers to every rank)
+    cols = None if additional_parameters_to_save else _checked_cols(dims)
 
+    layout = None if mesh is None else sharding.Layout.from_mesh(mesh, dims)
+    shard = None if layout is None else layout.genes
+    if shard is not None:  # the rank's genes, on the card
+        data = sharding.shard_data(data, shard, device)
+    logp = nb_model.flat_logp(dims)
     if approximate_posterior_inference:
         with timed("variational fit"):
             res = vb_iterative(
-                logp, dims.dim, g_fit,
+                functools.partial(logp, data=data, shard=shard), dims.dim, g_fit,
                 max_iter=K.VB_MAX_ITER,
                 tol_rel_obj=K.VB_TOL_REL_OBJ,  # hard-coded in reference R/utilities.R:1493
                 init_mean=init,
+                layout=layout,
                 device=device,
                 dtype=dtype,
             )
-        thetas = advi_sample(res, g_draws, draws_practical)
+        thetas = advi_sample(res, g_draws, draws_practical, layout, dims.dim)
         fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
         vb_iterations = res.iterations
     else:
         with timed(f"{mcmc_sampler} fit"):
-            res, fit_info = _mcmc_fit(logp, dims, init, draws_practical, g_fit, device, dtype,
-                                      mcmc_sampler, hmc_adapt_trajectory, cores)
-        thetas = res.draws.reshape(-1, dims.dim)
+            res, fit_info = _mcmc_fit(logp, data, dims, init, draws_practical, g_fit, device,
+                                      dtype, mcmc_sampler, hmc_adapt_trajectory, cores, layout)
+        thetas = res.draws
         vb_iterations = None
+    if layout is None or (approximate_posterior_inference and shard is None):
+        cols = None  # the whole vector is at hand
+    else:  # the draws' columns that the CIs read, from every rank
+        thetas = layout.gather(thetas, cols)
+    thetas = thetas.reshape(-1, thetas.shape[-1])
+    if mesh is not None:
+        fit_info["mesh"] = dict(axes)
 
     result = _finish_inference(
         thetas=thetas, fit=res if pass_fit else fit_info,
-        md=md, data=data, dims=dims, my_df=my_df, formula=formula,
+        md=md, data=data, dims=dims if cols is None else _checked_dims(dims),
+        my_df=my_df, formula=formula,
         sample=sample, transcript=transcript, abundance=abundance,
         do_check=do_check, X=X, sorted_sample_names=sorted_sample_names,
         approximate_posterior_analysis=approximate_posterior_analysis,
@@ -187,26 +242,84 @@ def do_inference(
     return result
 
 
+def _mesh_axes(mesh, device) -> dict:
+    """{axis: size} of a mesh, after checking its axes and its device type."""
+    if mesh is None:
+        return {}
+    axes = sharding.mesh_axes(mesh)
+    if not ({"genes", "chains"} & set(axes)) or set(axes) - {"genes", "chains"}:
+        raise ValueError(
+            f"mesh axes {tuple(axes)} unknown: name them 'genes' and/or 'chains'")
+    if torch.device(mesh.device_type).type != torch.device(device).type:
+        raise ValueError(f"the mesh is on {mesh.device_type} but device is {device}: "
+                         "the fits run on the mesh's own devices")
+    return axes
+
+
+def _checked_cols(dims) -> np.ndarray:
+    """Global flat indices of the checked block: the scalars, intercept and
+    sigma_raw of the checked genes, alpha_sub_1 and alpha_2."""
+    n, G, K = len(SCALAR_NAMES), dims.G, dims.n_check
+    return np.r_[0:n, n:n + K, n + G:n + G + K, n + 2 * G:dims.dim]
+
+
+def _checked_dims(dims):
+    """The dims of a vector of `_checked_cols` coordinates: the checked
+    genes alone."""
+    return replace(dims, G=dims.n_check, G_unpadded=min(dims.G_unpadded, dims.n_check))
+
+
+def _chains_over(chains: int, layout) -> int:
+    """The chain count rounded up to a multiple of a chains axis."""
+    n = 1 if layout is None else layout.chains_size
+    return -(-chains // n) * n
+
+
 def _check_sampler(mcmc_sampler: str) -> None:
     if mcmc_sampler not in ("hmc", "nuts"):
         raise ValueError(f"unknown mcmc_sampler {mcmc_sampler!r} (use 'hmc' or 'nuts')")
 
 
-def _mcmc_fit(logp, dims, init, draws_practical, generator, device, dtype, mcmc_sampler,
-              hmc_adapt_trajectory, cores):
+def _diagnostics(res, dims, layout, fit_info):
+    """Convergence diagnostics on the parameters that drive the calls (the
+    6 hyperparameters + the slope block), gathered from every rank; only
+    these columns leave the device."""
+    if res.draws.shape[1] < 4:
+        return
+    n, G = len(SCALAR_NAMES), dims.G
+    sel = np.r_[0:n, n + 2 * G:n + 2 * G + dims.n_check]
+    if layout is None:
+        block = res.draws[:, :, torch.as_tensor(sel, device=res.draws.device)]
+    else:
+        block = layout.gather(res.draws, sel)
+    d = summarize(block.cpu().numpy())
+    fit_info["rhat_max"] = d["rhat_max"]
+    fit_info["ess_min"] = d["ess_min"]
+
+
+def _mcmc_fit(logp, data, dims, init, draws_practical, generator, device, dtype, mcmc_sampler,
+              hmc_adapt_trajectory, cores, layout=None):
     """ADVI warm start, then jittered HMC (ChEES with hmc_adapt_trajectory)
-    with the divergence-retry ladder, or NUTS (identify.py:216-309 of the
-    JAX package). Returns the sampler's result and the fit info."""
+    with the divergence-retry ladder, or NUTS (identify.py:216-309 and
+    468-612 of the JAX package). `logp` is nb_model.flat_logp(dims) and
+    `data` the model data, the rank's genes of it under a gene `layout`;
+    the fits then run on the local state and the samplers split their chain
+    batch over a chains axis (the warm start runs whole on every chain
+    rank). Returns the sampler's result and the fit info."""
+    mesh = None if layout is None else layout.mesh
+    shard = None if layout is None else layout.genes
     # a quick meanfield fit supplies the initial point and the diagonal mass
     warm = fit_advi(
-        logp, dims.dim, generator,
+        functools.partial(logp, data=data, shard=shard), dims.dim, generator,
         init_mean=init, tol_rel_obj=0.01, learning_rate=0.3,
-        eval_every=50, grad_samples=4, device=device, dtype=dtype,
+        eval_every=50, grad_samples=4, layout=layout, device=device, dtype=dtype,
     )
     inv_mass = torch.exp(2.0 * warm.log_sd)
+    common = dict(data=data, dims=dims, mesh=mesh, init_theta=warm.mean, device=device,
+                  dtype=dtype)
     breadcrumb(f"executing {mcmc_sampler} fit")
     if mcmc_sampler == "hmc":
-        chains = K.HMC_CHAINS
+        chains = _chains_over(K.HMC_CHAINS, layout)
         per_chain = int(np.ceil(draws_practical / chains))
         # divergence-retry ladder (the MCMC analog of vb_iterative, reference
         # R/utilities.R:246-278): tighten target accept if more than 2% of
@@ -219,11 +332,9 @@ def _mcmc_fit(logp, dims, init, draws_practical, generator, device, dtype, mcmc_
                 num_draws=per_chain,
                 num_leapfrog=K.HMC_LEAPFROG,
                 target_accept=ta,
-                init_theta=warm.mean,
                 inv_mass=inv_mass,
                 adapt_trajectory=hmc_adapt_trajectory,
-                device=device,
-                dtype=dtype,
+                **common,
             )
             if res.divergences.sum() <= 0.02 * chains * per_chain:
                 break
@@ -239,16 +350,16 @@ def _mcmc_fit(logp, dims, init, draws_practical, generator, device, dtype, mcmc_
         if res.trajectory_length is not None:
             fit_info["trajectory_length"] = res.trajectory_length
     else:
-        chains = chains_for_run(draws_practical, cores)
+        # gene-sharded NUTS runs 4 chains, as JAX's (identify.py:567-586)
+        chains = _chains_over(4 if shard is not None else chains_for_run(draws_practical, cores),
+                              layout)
         res = run_nuts(
             logp, dims.dim, generator,
             num_chains=chains,
             num_warmup=K.MCMC_WARMUP,
             num_draws=mcmc_iterations(draws_practical, chains),
-            init_theta=warm.mean,
             inv_mass_init=inv_mass,
-            device=device,
-            dtype=dtype,
+            **common,
         )
         fit_info = {
             "method": "nuts",
@@ -256,13 +367,7 @@ def _mcmc_fit(logp, dims, init, draws_practical, generator, device, dtype, mcmc_
             "divergences": res.divergences.tolist(),
             "step_size": res.step_size.tolist(),
         }
-    # convergence diagnostics on the parameters that drive the calls (slope
-    # block + the 6 hyperparameters); only these columns leave the device
-    if res.draws.shape[1] >= 4:
-        sel = np.r_[0:6, 6 + 2 * dims.G : 6 + 2 * dims.G + dims.n_check]
-        d = summarize(res.draws[:, :, torch.as_tensor(sel, device=res.draws.device)].cpu().numpy())
-        fit_info["rhat_max"] = d["rhat_max"]
-        fit_info["ess_min"] = d["ess_min"]
+    _diagnostics(res, dims, layout, fit_info)
     return res, fit_info
 
 
@@ -404,9 +509,9 @@ def identify_outliers(
     Mirrors ppcseq_tpu.identify_outliers (reference R/methods.R:74-98) and
     returns the same nested DataFrame: one row per checked transcript with
     [transcript, sample_wise_data, ppc_samples_failed,
-    tot_deleterious_outliers*]. `device` takes the place of the JAX
-    package's `mesh`: the fits and the CI simulation run there (float32 on
-    CUDA; `dtype` is honoured on the CPU). approximate_posterior_inference=
+    tot_deleterious_outliers*]. The fits and the CI simulation run on
+    `device` (float32 on CUDA; `dtype` is honoured on the CPU).
+    approximate_posterior_inference=
     False runs the jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains;
     ChEES trajectory adaptation with `hmc_adapt_trajectory=True`) or NUTS
     (`mcmc_sampler="nuts"`, chains from the draw count and `cores`, default
@@ -416,19 +521,19 @@ def identify_outliers(
     `additional_parameters_to_save` puts pass 2's constrained draws by name
     in `attrs["additional_parameters"]`; `save_generated_quantities` (MCMC
     with the exact CI) adds each point's simulated counts as a
-    "generated quantities" frame. `mesh` raises NotImplementedError.
+    "generated quantities" frame. `mesh`, a torch.distributed DeviceMesh
+    with a `genes` and/or a `chains` axis on `device`'s type
+    (parallel/multihost.py builds one), shards the fits (do_inference);
+    every rank calls with the same arguments and returns the same table.
     """
     if not approximate_posterior_inference:
         _check_sampler(mcmc_sampler)
-    if mesh is not None:
-        raise _not_ported("mesh (pass device= instead)", 6)
     device = resolve_device(device)
+    _mesh_axes(mesh, device)
     dtype = working_dtype(device, dtype)
     if cores is None:
         cores = os.cpu_count() or 1
     if tol_rel_obj != 0.01:
-        import warnings
-
         warnings.warn(
             "ppcseq says: tol_rel_obj is accepted for API parity but ignored — "
             f"the VB fit uses the reference's hard-coded {K.VB_TOL_REL_OBJ} "
@@ -444,8 +549,6 @@ def identify_outliers(
     ingest.check_if_any_na(data, [sample, transcript, abundance, significance] + parse_formula(formula))
 
     if not data[do_check].astype(bool).any():
-        import warnings
-
         warnings.warn("ppcseq says: there are no transcripts with the .do_check category. Empty result returned.")
         return pd.DataFrame(
             {transcript: [], "sample_wise_data": [], "ppc_samples_failed": [],
@@ -482,8 +585,6 @@ def identify_outliers(
         )
         required = intercept_b + how_many_posterior_draws_2 * slope_b
         if required > _available_memory_bytes():
-            import warnings
-
             warnings.warn(
                 "Not enough memory to analyse the posterior with full MCMC draws; "
                 "approximate_posterior_analysis set to True"
@@ -522,16 +623,16 @@ def identify_outliers(
         hmc_adapt_trajectory=hmc_adapt_trajectory, cores=cores,
         # the reference reuses the same seed for both passes
         # (R/methods.R:284, 340-341)
-        seed=seed, device=device, dtype=dtype,
+        seed=seed, mesh=mesh, device=device, dtype=dtype,
     )
 
-    # the device type and the dtype change the computation (kernels vs plain
-    # versions, f32 vs f64 densities): they invalidate checkpoints like any
-    # other config change
+    # the mesh, the device type and the dtype change the computation (gene
+    # padding, chain counts, kernels vs plain versions, f32 vs f64
+    # densities): they invalidate checkpoints like any other config change
     base_cfg = dict(
         formula=formula, approx_inf=approximate_posterior_inference,
         seed=seed, sampler=mcmc_sampler, adapt_trajectory=hmc_adapt_trajectory,
-        device=device.type, dtype=str(dtype),
+        mesh=sharding.mesh_desc(mesh), device=device.type, dtype=str(dtype),
     )
 
     # ---- PASS 1: discovery (R/methods.R:268-286) -------------------------
@@ -553,7 +654,7 @@ def identify_outliers(
                 **common,
             )
         if resumable1:
-            _save(checkpoint_dir, "pass1", res_discovery, fp1)
+            _save(checkpoint_dir, "pass1", res_discovery, fp1, mesh)
     if just_discovery:
         return res_discovery.table
 
@@ -592,7 +693,7 @@ def identify_outliers(
                 **common,
             )
         if resumable2:
-            _save(checkpoint_dir, "pass2", res_test, fp2)
+            _save(checkpoint_dir, "pass2", res_test, fp2, mesh)
 
     # ---- merge (reference merge_results, R/utilities.R:539-608) ----------
     result = merge_results(
@@ -622,12 +723,21 @@ def identify_outliers(
     return result
 
 
-def _save(checkpoint_dir: str, name: str, res: InferenceResult, fingerprint: str) -> None:
-    """Persist one pass's table with what a resume needs beside it."""
+def _save(checkpoint_dir: str, name: str, res: InferenceResult, fingerprint: str,
+          mesh=None) -> None:
+    """Persist one pass's table with what a resume needs beside it; under a
+    mesh the global rank 0 writes it and every rank waits for it."""
     extra = {"total_draws": res.total_draws}
     if res.vb_iterations is not None:
         extra["vb_iterations"] = res.vb_iterations
-    ckpt.save_pass(checkpoint_dir, name, res.table, fingerprint, extra=extra)
+    if mesh is None:
+        ckpt.save_pass(checkpoint_dir, name, res.table, fingerprint, extra=extra)
+        return
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        ckpt.save_pass(checkpoint_dir, name, res.table, fingerprint, extra=extra)
+    dist.barrier()
 
 
 def _resume(checkpoint_dir: str, name: str, fingerprint: str) -> InferenceResult | None:

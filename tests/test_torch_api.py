@@ -64,9 +64,10 @@ def test_lazy_api_is_the_ports(name, owner):
 
 
 def test_unported_and_unknown_names():
-    """run_nuts is the port's sampler now; what stays unported of it is the
-    sharded state, and an unknown name is an AttributeError."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """run_nuts is the port's sampler, sharded over a DeviceMesh since the
+    mesh was ported (anything else as a mesh is a TypeError), and an unknown
+    name is an AttributeError."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ppcseq_tpu_torch.run_nuts(_gaussian, 2, torch.Generator(), mesh=object(), device="cpu")
     with pytest.raises(AttributeError, match="no_such_name"):
         ppcseq_tpu_torch.no_such_name  # noqa: B018

@@ -17,6 +17,7 @@ from ppcseq_tpu.utils import checkpoint as jckpt
 from ppcseq_tpu_torch import identify_outliers, load_counts
 from ppcseq_tpu_torch.pipeline import identify
 from ppcseq_tpu_torch.utils import checkpoint as ckpt
+from torch_mesh_stub import MeshOf
 
 torch.set_num_threads(2)
 
@@ -145,3 +146,27 @@ def test_pass_fit_refits_instead_of_silent_none(tiny_counts, copy_of, fits):
     assert len(fits) == 2
     assert res.attrs["fit 1"] is not None and res.attrs["fit 2"] is not None
     assert res.attrs["total_draws"] > 0
+
+
+def test_mesh_change_invalidates(tiny_counts, copy_of, fits, monkeypatch):
+    """The fingerprint takes the mesh's (axis, size) pairs, as JAX's
+    mesh_desc (identify.py:792-801): a gene-sharded run (another gene
+    padding) does not resume the unsharded run's checkpoint, and the
+    fingerprints of two meshes differ."""
+    from ppcseq_tpu_torch.parallel import sharding
+
+    class _Stop(Exception):
+        pass
+
+    def no_fit(*args, **kwargs):
+        fits.append(sharding.mesh_desc(kwargs["mesh"]))
+        raise _Stop
+
+    monkeypatch.setattr(identify, "do_inference", no_fit)
+    with pytest.raises(_Stop):
+        identify_outliers(tiny_counts, checkpoint_dir=copy_of, mesh=MeshOf(genes=2), **_ARGS)
+    assert fits == [(("genes", 2),)]
+    frame = tiny_counts.head(50)
+    prints = {ckpt.config_fingerprint(frame, which="pass1", mesh=sharding.mesh_desc(m))
+              for m in (None, MeshOf(genes=2), MeshOf(genes=4), MeshOf(chains=2, genes=2))}
+    assert len(prints) == 4

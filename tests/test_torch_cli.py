@@ -95,8 +95,12 @@ def test_cli_end_to_end(tiny_csv, tmp_path, capsys):
     assert printed == summary.to_dict("records")
 
 
-def test_cli_mesh_is_not_ported(tiny_csv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_cli_mesh_is_not_ported(tiny_csv, tmp_path, monkeypatch):
+    """--mesh is ported: outside torchrun a mesh of several processes is a
+    SystemExit that says how to launch them (test_cli_mesh_under_torchrun
+    runs one)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
         cli_main(_args(tiny_csv, tmp_path / "r", "--mesh", "genes=4", "--device", "cpu"))
 
 
@@ -144,3 +148,44 @@ def test_console_script_and_package_data_cover_the_kernels():
     for rel in sorted(needed):
         assert (csrc.parent / rel).exists(), rel
         assert any(fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"
+
+
+@pytest.mark.parametrize("spec,message", [
+    ("replicas=2", "bad axis"), ("genes=two", "bad axis"),
+    ("genes=1,genes=1", "duplicate axis 'genes'"),
+    ("genes=0", "at least 1 process"),  # JAX's cli.py:93 accepts it (ROADMAP §3)
+    ("chains=2,genes=2", "needs 4 processes, but WORLD_SIZE is 2")])
+def test_parse_mesh_spec_errors(spec, message, monkeypatch):
+    """Each bad --mesh is a SystemExit naming the fault, before any
+    process group starts."""
+    from ppcseq_tpu_torch.cli import parse_mesh_spec
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match=message):
+        parse_mesh_spec(spec, "cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    if "WORLD_SIZE" in message:
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
+            parse_mesh_spec(spec, "cpu")
+
+
+def test_cli_mesh_under_torchrun(tiny_csv, tmp_path):
+    """`torchrun --nproc-per-node 2 -m ppcseq_tpu_torch ... --mesh genes=2
+    --device cpu`: the gene-sharded run gives the unsharded run's calls
+    (0, 1, 0), and only rank 0 prints the summary and writes the files."""
+    out = tmp_path / "mesh"
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "ppcseq_tpu_torch", *_args(tiny_csv, out, "--mesh", "genes=2",
+                                                  "--device", "cpu", "--seed", "5", "--json")]
+    proc = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    printed = [line for line in proc.stdout.splitlines() if line.startswith("[{")]
+    assert len(printed) == 1, proc.stdout
+    summary = pd.read_csv(out / "result.csv")
+    assert json.loads(printed[0]) == summary.to_dict("records")
+    assert dict(zip(summary.symbol, summary.tot_deleterious_outliers)) == {
+        "SLC16A12": 0, "CYP1A1": 1, "ART3": 0}
+    assert len(pd.read_csv(out / "sample_wise_data.csv")) == 3 * 21

@@ -612,3 +612,77 @@ def test_cli_on_the_card(tmp_path):
     assert dict(zip(summary.symbol, summary.tot_deleterious_outliers)) == {
         "SLC16A12": 0, "CYP1A1": 1, "ART3": 0}
     assert nb_kernel.LAUNCHES["nb_glm_delta"] > 0
+
+
+def test_sharded_density_through_k1_in_a_one_rank_nccl_group(tmp_path, monkeypatch):
+    """A world of one under NCCL with a `genes` axis of 1: the sharded log
+    density launches K1 once and all-reduces once on the card per
+    value+gradient, and equals the unsharded K1 route's bits (a one-rank
+    all-reduce of float64 is exact). Against the same log joint with K1's
+    plain version (nb_fast.glm_delta) on the card in its place, at phase
+    kernel's limits: value rtol 2e-5, gradient |d|/(1+|g|) < 1e-4 (the
+    priors' float32 rounding is then the same on both sides). Against the
+    float64 log joint (masked_likelihood) the float32 K1 route is held to
+    limits set from its readings: value rtol 2e-5; the sigma_raw
+    coordinates (dlog_phi, whose float32 cancellation is worst at large
+    dispersion phi) |d|/(1+|g|) < 2.5e-2, read 1.66e-2 on the card and
+    1.61e-2 from the plain version on the CPU; every other coordinate
+    < 1e-3, read 2.7e-4 on the CPU."""
+    _needs_card()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.model.params import offsets
+    from ppcseq_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("genes",))
+        rng = np.random.default_rng(4)
+        S, G = 21, 515
+        X = np.column_stack([np.ones(S), rng.integers(0, 2, S).astype(float)])
+        exposure = rng.normal(0.0, 0.3, S)
+        counts = rng.poisson(np.exp(exposure[:, None] + rng.normal(4.0, 1.0, (1, G))))
+        host, dims = nb_model.prepare_data(counts, X, exposure, 15, device="cpu",
+                                           dtype=torch.float32)
+        host = nb_model.with_baseline(host, dims)
+        layout = sharding.Layout.from_mesh(mesh, dims)
+        card = sharding.shard_data(host, layout.genes, dev)  # every gene: the axis is 1
+        theta = (torch.as_tensor(nb_model.smart_init(host, dims))[None]
+                 + 0.05 * torch.as_tensor(rng.normal(size=(3, dims.dim)))).float()
+        f = nb_model.flat_logp(dims)
+
+        def value_and_grad(fn, th):
+            t = th.clone().requires_grad_(True)
+            lp = fn(t)
+            (g,) = torch.autograd.grad(lp.sum(), t)
+            return lp.detach(), g
+
+        nb_kernel.reset_launches()
+        sharding.reset_collectives()
+        lp, g = value_and_grad(layout.density(lambda t: f(t, card, layout.genes)), theta.to(dev))
+        assert nb_kernel.LAUNCHES["nb_glm_delta"] == 1
+        assert sharding.COLLECTIVES["logp"] == 1
+        k1_lp, k1_g = value_and_grad(lambda t: nb_model.log_joint(t, card, dims), theta.to(dev))
+        assert torch.equal(lp, k1_lp) and torch.equal(g, k1_g)
+        card64, _ = nb_model.prepare_data(counts, X, exposure, 15, device=dev,
+                                          dtype=torch.float64)
+        card64 = nb_model.with_baseline(card64, dims)
+        want64, want64_g = value_and_grad(
+            lambda t: nb_model.log_joint(t, card64, dims, likelihood_fn=nb_model.masked_likelihood),
+            theta.to(dev, torch.float64))
+        assert float(((lp - want64).abs() / want64.abs()).max()) < 2e-5
+        lo, hi = offsets(dims)["sigma_raw"]
+        assert _scaled(g[:, lo:hi], want64_g[:, lo:hi]) < 2.5e-2
+        assert _scaled(torch.cat([g[:, :lo], g[:, hi:]], 1),
+                       torch.cat([want64_g[:, :lo], want64_g[:, hi:]], 1)) < 1e-3
+        monkeypatch.setattr(nb_kernel, "_on", lambda device: False)  # the plain version
+        want, want_g = value_and_grad(lambda t: nb_model.log_joint(t, card, dims), theta.to(dev))
+        assert nb_kernel.LAUNCHES["nb_glm_delta"] == 2
+        assert float(((lp - want).abs() / want.abs()).max()) < 2e-5
+        assert _scaled(g, want_g) < 1e-4
+    finally:
+        dist.destroy_process_group()

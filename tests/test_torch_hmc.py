@@ -143,10 +143,11 @@ def test_hmc_nb_model_agrees_with_advi():
 
 
 def test_hmc_refuses_what_is_not_ported():
-    """A mesh is refused, with or without ChEES; ChEES alone now runs."""
+    """A mesh that is not a DeviceMesh is refused, with or without ChEES
+    (a DeviceMesh runs: tests/test_torch_sharding.py); ChEES alone runs."""
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(mesh=object()), dict(mesh=object(), adapt_trajectory=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, device="cpu", **kw)
     res = run_hmc(lambda x: -x.pow(2).sum(1), 2, gen, num_chains=4, num_warmup=5, num_draws=3,
                   num_leapfrog=8, adapt_trajectory=True, device="cpu", dtype=torch.float64)

@@ -409,3 +409,45 @@ def test_log_joint_sums_energy_differences_in_float64(likelihood):
     assert abs(float(lp[1] - lp[0]) - delta_want) < 1e-3
     lp32 = lp.float()
     assert abs(float(lp32[1] - lp32[0]) - delta_want) > 1e-2
+
+
+def test_fast_route_gradient_against_float64():
+    """The float32 "fast" route (K1's plain version on the CPU,
+    nb_fast.glm_delta) against the float64 log joint, at the inputs of
+    tests/test_torch_cuda.py's NCCL case (S = 21, G = 515, seed 4). The
+    value sits within rtol 2e-5. dlog_phi is coarse at large dispersion:
+    the sigma_raw coordinates read 1.61e-2 in |d|/(1+|g|) (at phi ~ 4,751),
+    held below 2.5e-2, where the masked float32 form reads 2.2e-3; every
+    other coordinate reads 2.7e-4, held below 1e-3."""
+    from ppcseq_tpu_torch.model.params import offsets
+
+    rng = np.random.default_rng(4)
+    S, G = 21, 515
+    X = np.column_stack([np.ones(S), rng.integers(0, 2, S).astype(float)])
+    exposure = rng.normal(0.0, 0.3, S)
+    counts = rng.poisson(np.exp(exposure[:, None] + rng.normal(4.0, 1.0, (1, G))))
+    models = {}
+    for dtype in (torch.float32, torch.float64):
+        data, dims = nb_model.prepare_data(counts, X, exposure, 15, device="cpu", dtype=dtype)
+        models[dtype] = nb_model.with_baseline(data, dims)
+    theta = (torch.as_tensor(nb_model.smart_init(models[torch.float32], dims))[None]
+             + 0.05 * torch.as_tensor(rng.normal(size=(3, dims.dim))))
+
+    def value_and_grad(dtype, likelihood_fn=None):
+        t = theta.to(dtype).requires_grad_(True)
+        lp = nb_model.log_joint(t, models[dtype], dims, likelihood_fn=likelihood_fn)
+        (g,) = torch.autograd.grad(lp.sum(), t)
+        return lp.detach(), g.double()
+
+    def scaled(g, want):
+        return ((g - want).abs() / (1 + want.abs())).max(dim=0).values
+
+    want, want_g = value_and_grad(torch.float64, nb_model.masked_likelihood)
+    lp, g = value_and_grad(torch.float32)
+    _, masked_g = value_and_grad(torch.float32, nb_model.masked_likelihood)
+    assert float(((lp - want).abs() / want.abs()).max()) < 2e-5
+    lo, hi = offsets(dims)["sigma_raw"]
+    fast, masked = scaled(g, want_g), scaled(masked_g, want_g)
+    assert float(fast[lo:hi].max()) < 2.5e-2
+    assert float(masked[lo:hi].max()) < 5e-3
+    assert float(torch.cat([fast[:lo], fast[hi:]]).max()) < 1e-3

@@ -246,8 +246,8 @@ def test_nuts_on_banana_no_nans():
 
 def test_run_nuts_refuses_what_is_not_ported():
     gen = torch.Generator()
-    for kw in (dict(mesh=object()), dict(dims=object())):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    for kw in (dict(mesh=object()), dict(mesh=object(), dims=object())):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             nuts.run_nuts(lambda x: -x.pow(2).sum(1), 2, gen, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="pytree"):
         nuts.run_nuts(lambda x: -x.pow(2).sum(1), {"a": np.zeros(2)}, gen, device="cpu")

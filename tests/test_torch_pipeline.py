@@ -90,10 +90,12 @@ def test_host_prep_equals_jax(sig_counts):
 
 def test_unported_options_raise(sig_counts):
     # checkpoint_dir and additional_parameters_to_save run since they were
-    # ported (tests/test_torch_checkpoint.py, tests/test_torch_product.py)
+    # ported (tests/test_torch_checkpoint.py, tests/test_torch_product.py),
+    # and a DeviceMesh since the mesh was (tests/test_torch_pipeline_mesh.py):
+    # anything else as a mesh is a TypeError
     for kw in (dict(approximate_posterior_inference=False, mcmc_sampler="nuts", mesh=object()),
                dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             identify_outliers(sig_counts, **{**_COMMON, **kw})
 
 

@@ -11,6 +11,7 @@ import torch
 
 from ppcseq_tpu_torch import identify_outliers, load_counts
 from ppcseq_tpu_torch.utils.synthetic import synthetic_tidy
+from torch_mesh_stub import MeshOf
 
 torch.set_num_threads(2)
 
@@ -44,7 +45,8 @@ def _calls(res):
 
 def test_hmc_adapt_trajectory_in_product():
     """ChEES reaches the product path: the adapted trajectory length is in
-    the fit of pass 2, and with a mesh the port refuses."""
+    the fit of pass 2; with a `genes` mesh axis the port refuses it, as JAX
+    does (identify.py:164-168), before any collective."""
     df = synthetic_tidy(n_genes=48, n_samples=8, n_check=3, outlier_frac=0.15, seed=0)
     kw = dict(formula="~ Label", how_many_negative_controls=30,
               approximate_posterior_inference=False, mcmc_sampler="hmc",
@@ -54,8 +56,8 @@ def test_hmc_adapt_trajectory_in_product():
     fit2 = res.attrs["fit 2"]
     assert fit2.trajectory_length is not None and fit2.trajectory_length > 0
     assert torch.isfinite(fit2.draws).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        identify_outliers(df, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="hmc_adapt_trajectory.*'genes'"):
+        identify_outliers(df, mesh=MeshOf(genes=2), **kw)
 
 
 @pytest.mark.parametrize("formula", ["~ Label + batch", "~ Label * batch"], ids=["C3", "C4"])

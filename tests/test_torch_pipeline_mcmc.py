@@ -1,7 +1,7 @@
 """The port's MCMC branch of identify_outliers on the CPU: the reference's
 3-gene (0, 1, 0) calls through jittered HMC and through NUTS (as
 tests/test_pipeline_mcmc.py:42-58 runs them on the JAX package), and the
-mesh, which is not ported yet, raising NotImplementedError."""
+mesh options that stay refused."""
 
 import pytest
 import torch
@@ -76,13 +76,15 @@ def test_mcmc_nuts_pipeline(sig_counts, monkeypatch):
 
 # The options nuts, adapt_trajectory and save_generated_quantities run since
 # they were ported (above, tests/test_torch_pipeline_extra.py and
-# tests/test_torch_product.py); what stays refused of them is the mesh that
-# shards their chains or genes.
-@pytest.mark.parametrize("option", [dict(mcmc_sampler="nuts", mesh=object()),
-                                    dict(hmc_adapt_trajectory=True, mesh=object())],
-                         ids=["nuts", "adapt_trajectory"])
-def test_mcmc_options_not_ported_raise(sig_counts, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+# tests/test_torch_product.py), and over a DeviceMesh since the mesh was
+# (tests/test_torch_pipeline_mesh.py, ChEES over a `chains` axis too). What
+# stays refused with either option: a mesh that is not a DeviceMesh.
+@pytest.mark.parametrize("option,error", [
+    (dict(mcmc_sampler="nuts", mesh=object()), TypeError),
+    (dict(hmc_adapt_trajectory=True, mesh=object()), TypeError)],
+    ids=["nuts", "adapt_trajectory"])
+def test_mcmc_options_not_ported_raise(sig_counts, option, error):
+    with pytest.raises(error, match="DeviceMesh"):
         identify_outliers(sig_counts, **{**_COMMON, **option})
 
 
