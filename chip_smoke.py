@@ -7,7 +7,13 @@ so the exit code is non-zero):
   1. probe   library, compiler and card versions
   2. build   nvcc-build the three kernel sources from csrc/, in parallel
              (timed)
-  3. kernel  the five kernels (K1-K5) against their plain torch versions on
+  3. host    the native host runtime (ppcseq_tpu_torch/_native.py: the C++
+             pivot and TMM, built with the host compiler; build seconds and
+             whether it was built already), then TMM at phase cli's 50,000 x
+             100 cohort on this host: the native factors against the NumPy
+             version's (rtol 1e-12), each timed, with the host CPU's model
+             name (lscpu) and core count
+  4. kernel  the five kernels (K1-K5) against their plain torch versions on
              the card, in float32, at (B, S, G) = (1, 21, 515) and
              (128, 21, 515) on the bundled cohort (15 checked genes + 500
              controls) and (8, 100, 50000) on the synthetic scale cohort;
@@ -26,13 +32,15 @@ so the exit code is non-zero):
              the stable form: its value and gradients in one launch.
              Exactly zero gradients for a masked gene. Per row:
              device_us (device time per call: torch.profiler over many
-             back-to-back calls), cuda_kernels_per_call (1 for K1-K5),
+             back-to-back calls, or CUDA events around them where two
+             profiler sessions record no kernel; device_us_source says
+             which), cuda_kernels_per_call (1 for K1-K5),
              layout (nb_kernel.layout's T, BY, SY, SC), call_ms (median
              CUDA events around one call: what a caller waits), plain_ms,
              and bytes, ops, bound_us, bound_by, share_of_bound
              (= bound_us / device_us) from nb_kernel.work() on this run's
              branch shares.
-  4. hmc     jittered HMC at full width: (a) bench.py's configuration
+  5. hmc     jittered HMC at full width: (a) bench.py's configuration
              (bundled cohort, no baseline, so flat_logp(dims) runs K2; ADVI
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
              divergences <= 2%); (b) scripts/bench_scale.py's (50,000 x 100
@@ -46,7 +54,7 @@ so the exit code is non-zero):
              through K1, K2, K3 and K4, against each route's plain version
              in float64. (c) ChEES trajectory adaptation at (a)'s
              configuration (L=48 the cap; divergences <= 2%).
-  5. nuts    NUTS at scripts/baseline_cpu.py's full width: the bundled
+  6. nuts    NUTS at scripts/baseline_cpu.py's full width: the bundled
              cohort, no baseline (K2), D = 1051, 4 chains, warmup 150,
              NUTS_DRAWS draws per chain, max_depth 10, from the ADVI warm
              start's mean and variances as the pipeline's NUTS branch
@@ -54,11 +62,11 @@ so the exit code is non-zero):
              chains' own and the lockstep leapfrogs, the host syncs, the
              mean tree depth and the device's busy share over a short
              profiled window.
-  6. e2e     identify_outliers on the bundled data: the reference's 3-gene
+  7. e2e     identify_outliers on the bundled data: the reference's 3-gene
              case on both VB CI paths and on the HMC, ChEES and NUTS
              branches (calls must be SLC16A12 0, CYP1A1 1, ART3 0), and the
              15-gene README configuration (CYP1A1 and LYZ must be called).
-  7. cli     the product surface: (1) the command line
+  8. cli     the product surface: (1) the command line
              (ppcseq_tpu_torch.cli.main) on scripts/bench_pipeline_scale.py's
              50,000 x 100 synthetic cohort read from parquet (VB, the
              approximated CI, 49,900 controls: the fit covers every gene)
@@ -67,7 +75,8 @@ so the exit code is non-zero):
              the injected outlier cells, the resume must launch no kernel
              and write byte-identical CSVs; each row has the wall, the
              pipeline's stage times (utils/log), the peak device memory,
-             the K1 launches and the VB iterations of each pass. (2)
+             the K1 launches and the VB iterations of each pass (host prep
+             runs the native pivot and TMM). (2)
              `python -m ppcseq_tpu_torch` in a subprocess on the 15-gene
              README configuration with --json (and --plots where matplotlib
              is installed): CYP1A1 and LYZ called, one PNG per transcript.
@@ -75,7 +84,7 @@ so the exit code is non-zero):
              save_generated_quantities and additional_parameters_to_save:
              calls (0, 1, 0), a generated-quantities frame with values >= 0
              on every point, sigma = exp(-sigma_raw).
-  8. mesh    identify_outliers(mesh=) and the sharded samplers, each run
+  9. mesh    identify_outliers(mesh=) and the sharded samplers, each run
              as ranks of `torch.distributed.run` (torchrun) on the one card
              (gloo between ranks on one card, each CUDA buffer staged
              through the host; NCCL for a world of one), every rank running
@@ -149,27 +158,46 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def _device_us(fn, calls: int):
-    """(device µs per call, CUDA kernels per call, kernel records per call)
-    of fn(), which launches each of its CUDA kernels once: under
+def _device_us(fn, calls: int, sessions: int = 2):
+    """(device µs per call, CUDA kernels per call, kernel records per call,
+    source) of fn(), which launches each of its CUDA kernels once: under
     torch.profiler over `calls` back-to-back calls, the sum over the
     distinct kernels of each one's mean self device time. (The profiler may
     drop some kernel records, ~10% in one H100 run, so the records per call
-    can fall below the kernels per call; a mean is robust to that.)"""
+    can fall below the kernels per call; a mean is robust to that.) In one
+    H100 run a session recorded no kernel at all: then a fresh session is
+    tried, and after `sessions` empty ones the time is read from CUDA
+    events around the `calls` calls instead, the kernels per call from
+    ops/nb_kernel's launch counts and the records per call as None. That
+    time is an upper bound: where a kernel is shorter than the host's
+    launch interval, it is the interval."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ppcseq_tpu_torch.ops import nb_kernel
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.count]
-    dev_us = sum(e.self_device_time_total / e.count for e in kernels)
-    if dev_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return dev_us, len(kernels), sum(e.count for e in kernels) / calls
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.count]
+        dev_us = sum(e.self_device_time_total / e.count for e in kernels)
+        if dev_us > 0:
+            return dev_us, len(kernels), sum(e.count for e in kernels) / calls, "torch.profiler"
+        print(f"chip_smoke: torch.profiler recorded no device time over {calls} calls",
+              file=sys.stderr, flush=True)
+    launched = sum(nb_kernel.LAUNCHES.values())
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    n_cuda = (sum(nb_kernel.LAUNCHES.values()) - launched) / calls
+    return a.elapsed_time(b) * 1e3 / calls, n_cuda, None, "cuda events"
 
 
 def _np(t):
@@ -368,7 +396,7 @@ def phase_kernel(counts_df, device):
             t_k = _time_ms(kern_fn, reps=20)
             t_p = _time_ms(plain_fn, reps=10 if G > 1000 else 20)
             reps = 20 if G > 1000 else 200
-            dev_us, n_cuda, n_records = _device_us(kern_fn, reps)
+            dev_us, n_cuda, n_records, dev_source = _device_us(kern_fn, reps)
             w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
             lay = {k: v for k, v in nb_kernel.layout(name, B, S, C, G, grads).items()
                    if k in ("T", "BY", "SY", "SC")}
@@ -377,7 +405,8 @@ def phase_kernel(counts_df, device):
                        grad_err=grad_err, max_abs_err=mabs,
                        kernel_vs_f64=k64, plain_vs_f64=p64,
                        grad_limit=grad_limit, masked_gene_zero_grad=zero,
-                       finite=finite, device_us=dev_us, cuda_kernels_per_call=n_cuda,
+                       finite=finite, device_us=dev_us, device_us_source=dev_source,
+                       cuda_kernels_per_call=n_cuda,
                        kernel_records_per_call=n_records,
                        call_ms=t_k, plain_ms=t_p, bytes=w["bytes"], ops=w["ops"],
                        bound_us=w["bound_us"], bound_by=w["bound_by"],
@@ -493,8 +522,12 @@ def _busy_window(data, dims, likelihood, device, window=None):
         wall = time.perf_counter() - t0
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type.name == "CUDA") * 1e-6
+    if busy <= 0:  # the session recorded no kernel (_device_us): not measured
+        print("chip_smoke: torch.profiler recorded no device time in the busy window",
+              file=sys.stderr, flush=True)
+        busy = None
     return dict(window_leapfrogs=res.num_leapfrog, window_wall_s=wall, window_device_s=busy,
-                device_busy_share=busy / wall)
+                device_busy_share=None if busy is None else busy / wall)
 
 
 def _strip_baseline(data):
@@ -765,6 +798,50 @@ _STAGE_DONE = re.compile(r"done (.+) \(([0-9.]+)s\)$")
 HOST_PREP = ("format input", "design matrix and scaling", "model data")
 
 
+def _cpu_model() -> str:
+    import subprocess
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        return "not read (no lscpu)"
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+             if line.startswith("Model name:")]
+    return names[0] if names else "not read"
+
+
+def phase_host():
+    """Phase host: build (or load) the native host runtime, then time TMM
+    on phase cli's 50,000 x 100 cohort natively and in NumPy on this host,
+    and hold the factors at rtol 1e-12."""
+    from ppcseq_tpu_torch import _native
+    from ppcseq_tpu_torch.norm import tmm
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    _native.load()  # raises with the compiler's output if the build fails
+    info = _native.BUILD_INFO
+    print(f"phase host build: cached={info['cached']} seconds={info['seconds']:.3f} "
+          f"compiler={_native.compiler()} library={info['path']}", flush=True)
+    counts = synthetic_cohort(**CLI_COHORT)[0]
+    mat = np.ascontiguousarray(counts.T, dtype=np.float64)  # [genes, samples]
+    ref = int(np.argmax(np.median(mat, axis=0)))  # the highest median, as sample_scaling
+    native_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        f_native = tmm.tmm_norm_factors(mat, ref_column=ref)
+        native_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    f_numpy = tmm.tmm_norm_factors(mat, ref_column=ref, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(f_native - f_numpy) / np.abs(f_numpy)))
+    row = dict(config="tmm_norm_factors at chip_smoke CLI_COHORT", genes=mat.shape[0],
+               samples=mat.shape[1], ref_column=ref, native_s=native_s, numpy_s=numpy_s,
+               max_rel_diff=rel, host_cpu=_cpu_model(), host_cores=os.cpu_count())
+    print("phase host " + json.dumps(row), flush=True)
+    if not rel <= 1e-12:
+        raise AssertionError(f"host: native TMM {rel:.3e} from the NumPy version (rtol 1e-12)")
+
+
 def _cli_main(argv):
     """ppcseq_tpu_torch.cli.main(argv) with the pipeline's stage breadcrumbs
     (utils/log) captured and the printed summary dropped: (wall s, stage ->
@@ -801,6 +878,7 @@ def _cli_batch(device, tmp):
     import pandas as pd
     import torch
 
+    from ppcseq_tpu_torch import _native
     from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_tidy
 
     t0 = time.perf_counter()
@@ -840,7 +918,8 @@ def _cli_batch(device, tmp):
                    bounds_finite=bool(np.isfinite(flat[[".lower", ".upper"]].to_numpy()).all()),
                    deleterious_calls=int(summary["tot_deleterious_outliers"].sum()),
                    ppc_failed=int(summary["ppc_samples_failed"].sum()),
-                   injected_outlier_cells=len(spiked), injected_cells_flagged=len(spiked & flagged))
+                   injected_outlier_cells=len(spiked), injected_cells_flagged=len(spiked & flagged),
+                   native_library=_native.BUILD_INFO.get("path"))
         if run == "cold":
             row["table_setup_s"] = setup_s
         else:
@@ -852,6 +931,8 @@ def _cli_batch(device, tmp):
         if row["result_rows"] != CLI_COHORT["n_check"] or not row["bounds_finite"]:
             raise AssertionError(f"cli 50k {run}: {row['result_rows']} rows, finite bounds "
                                  f"{row['bounds_finite']}")
+        if row["native_library"] is None:
+            raise AssertionError(f"cli 50k {run}: host prep never loaded the native library")
         if 2 * row["injected_cells_flagged"] < len(spiked):
             raise AssertionError(f"cli 50k {run}: {row['injected_cells_flagged']} of "
                                  f"{len(spiked)} injected cells flagged")
@@ -1193,6 +1274,7 @@ def _mesh_cli(tmp):
                "cli.main, 2 ranks of torchrun on one card", torchrun_wall_s=wall,
                **_per_rank(recs, "backend", "cli_wall_s", "peak_device_bytes", "k1_shapes"),
                fit_wall_s=[r["stages_s"].get(fit) for r in recs],
+               host_prep_s=[sum(sum(r["stages_s"].get(k, [])) for k in HOST_PREP) for r in recs],
                stages_s=recs[0]["stages_s"], unsharded_wall_s=wall1,
                unsharded_fit_wall_s=stages1.get("variational fit"),
                collectives=_collectives_row(recs), checked_cells=len(want),
@@ -1365,6 +1447,7 @@ def main() -> None:
               f"registers={min(regs, default=0)}-{max(regs, default=0)} "
               f"spill_store_bytes={spills}", flush=True)
 
+    phase_host()
     counts_df = load_counts()
     kernel_rows = phase_kernel(counts_df, device)
     children, thread = _start_children()
@@ -1404,6 +1487,7 @@ def main() -> None:
             "launches_by_path": {path: c[name] for path, c in PATH_LAUNCHES.items() if c[name]},
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if r["kernel"] == name),
             "ms": row["device_us"] * 1e-3, "device_us": row["device_us"],
+            "ms_source": row["device_us_source"],
             "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_us"] * 1e-3, "bound_us": row["bound_us"],
             "bound_by": row["bound_by"], "share_of_bound": row["share_of_bound"],

@@ -3,9 +3,10 @@
 The reference ships `data/counts.rda` (R/data.R:1-5): 394,821 rows of
 21 samples x 18,801 transcripts from a breast-cancer cohort, with edgeR
 differential-expression statistics precomputed. We ship the identical table
-as a parquet fixture extracted once from the reference's RData file via
-`ppcseq_tpu.data.rdata` (see scripts/extract_counts.py). A copy of
-ppcseq_tpu/data/datasets.py reading the same fixture.
+as a parquet fixture extracted once from the reference's RData file by an
+RData reader written from scratch; the port's copy of that reader is
+`ppcseq_tpu_torch.data.rdata` (`read_rda`, `r_dataframe_to_pandas`). A copy
+of ppcseq_tpu/data/datasets.py reading the same fixture.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def load_counts() -> pd.DataFrame:
     path = os.environ.get("PPCSEQ_COUNTS_PARQUET", os.path.abspath(_FIXTURE))
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"counts fixture not found at {path}; run scripts/extract_counts.py"
+            f"counts fixture not found at {path}; extract it from the reference's "
+            "counts.rda with ppcseq_tpu_torch.data.rdata"
         )
     return pd.read_parquet(path)

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import pandas as pd
 
+from ppcseq_tpu_torch import _native
 from ppcseq_tpu_torch.formula.design import parse_formula
 
 
@@ -158,6 +159,14 @@ def format_input(
     return sub.assign(G=codes_t.astype(np.int64), S=codes_s.astype(np.int64))
 
 
+def _pivot_numpy(s_idx, g_idx, values, S: int, G: int) -> np.ndarray:
+    """The NumPy scatter that `_native.pivot_counts` replaces: the plain
+    version the tests hold the native pivot against."""
+    counts = np.zeros((S, G), dtype=np.int64)
+    counts[s_idx, g_idx] = values
+    return counts
+
+
 @dataclass
 class ModelData:
     """Dense per-(sample, gene) arrays for the TPU model.
@@ -202,9 +211,9 @@ def build_model_data(
     sample_names = pd.factorize(my_df[sample])[1].tolist()
     S, G = len(sample_names), len(gene_names)
 
-    # NumPy pivot (the native C++ pivot of ppcseq_tpu is not ported)
-    counts = np.zeros((S, G), dtype=np.int64)
-    counts[my_df["S"].to_numpy(), my_df["G"].to_numpy()] = my_df[abundance].to_numpy()
+    counts = _native.pivot_counts(
+        my_df["S"].to_numpy(), my_df["G"].to_numpy(), my_df[abundance].to_numpy(), S, G
+    )
 
     pos_in_sorted = {name: i for i, name in enumerate(sorted_sample_names)}
     X = np.asarray(X_by_sorted_sample, dtype=np.float64)[

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 
+from ppcseq_tpu_torch import _native
+
 
 def _rank_average(x: np.ndarray) -> np.ndarray:
     """R `rank()` with ties.method="average" (1-based)."""
@@ -95,6 +97,7 @@ def tmm_norm_factors(
     counts: np.ndarray,
     ref_column: int | None = None,
     lib_size: np.ndarray | None = None,
+    use_native: bool | None = None,
 ) -> np.ndarray:
     """TMM norm factors for a [genes, samples] count matrix.
 
@@ -103,12 +106,17 @@ def tmm_norm_factors(
     the mean is chosen (edgeR default); the reference pipeline always passes
     an explicit reference column (R/tidybulk.R:299-301).
 
-    The NumPy path of ppcseq_tpu/norm/tmm.py (its native C++ dispatch is
-    not ported).
+    With an explicit `ref_column` and no custom `lib_size`, the factors come
+    from the native C++ host runtime (ppcseq_tpu_torch/_native.py), which
+    is built at first use and raises if it cannot be. `use_native=False`
+    selects the NumPy version below, the plain reference it is tested
+    against.
     """
     x = np.asarray(counts, dtype=np.float64)
     if np.isnan(x).any():
         raise ValueError("NA counts not permitted")
+    if use_native is not False and lib_size is None and ref_column is not None:
+        return _native.tmm_norm_factors(x, int(ref_column))
     nsamp = x.shape[1]
     if lib_size is None:
         lib_size = x.sum(axis=0)

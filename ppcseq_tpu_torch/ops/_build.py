@@ -2,11 +2,11 @@
 
 Each kernel source under csrc/ is compiled with nvcc into a shared library
 with a plain C interface and loaded with ctypes. Libraries go to
-`build/kernels/<source stem>-<hash>/` at the repository root (override with
-PPCSEQ_TORCH_BUILD_DIR), keyed by a hash of the source, the shared
-csrc/*.cuh headers and the flags, so a changed source is rebuilt and an
-unchanged one is loaded as built. `load_all` starts one nvcc per source,
-all at once. Nothing here runs at import time.
+`build/kernels/<source stem>-<hash>/` at the repository root (the root
+`build/` moves with PPCSEQ_TORCH_BUILD_DIR), keyed by a hash of the
+source, the shared csrc/*.cuh headers and the flags, so a changed source
+is rebuilt and an unchanged one is loaded as built. `load_all` starts one
+nvcc per source, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,11 +37,11 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, dict] = {}
 
 
-def build_dir() -> Path:
-    env = os.environ.get("PPCSEQ_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+def build_dir(kind: str = "kernels") -> Path:
+    """Where built libraries of one kind go: `<root>/<kind>`, the root being
+    PPCSEQ_TORCH_BUILD_DIR or `build/` at the repository root."""
+    root = os.environ.get("PPCSEQ_TORCH_BUILD_DIR")
+    return (Path(root) if root else Path(__file__).resolve().parents[2] / "build") / kind
 
 
 def _lib_path(source: str) -> Path:

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from ppcseq_tpu.cli import build_parser as jax_build_parser
-from ppcseq_tpu_torch import load_counts
+from ppcseq_tpu_torch import _native, load_counts
 from ppcseq_tpu_torch.cli import build_parser
 from ppcseq_tpu_torch.cli import main as cli_main
 from ppcseq_tpu_torch.pipeline import identify
@@ -130,7 +130,8 @@ def test_module_entry_point_help():
 def test_console_script_and_package_data_cover_the_kernels():
     """pyproject.toml names the port's console script, and its package data
     match every kernel source and every header a source includes with
-    quotes (ops/_build.py hashes and compiles them)."""
+    quotes (ops/_build.py hashes and compiles them), and the native host
+    runtime's source (_native.py builds it at first use)."""
     meta = tomllib.loads((REPO / "pyproject.toml").read_text())
     assert meta["project"]["scripts"]["ppcseq-tpu-torch"] == "ppcseq_tpu_torch.cli:main"
     globs = meta["tool"]["setuptools"]["package-data"]["ppcseq_tpu_torch"]
@@ -145,6 +146,7 @@ def test_console_script_and_package_data_cover_the_kernels():
         for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
             todo.append(path.parent / inc)
     assert {"csrc/nb_common.cuh", "csrc/nb_tile.cuh"} <= needed
+    needed.add(_native.SOURCE.relative_to(csrc.parent).as_posix())
     for rel in sorted(needed):
         assert (csrc.parent / rel).exists(), rel
         assert any(fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"

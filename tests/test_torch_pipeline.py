@@ -118,7 +118,7 @@ def test_port_imports_no_jax():
     code = ("import sys, ppcseq_tpu_torch, ppcseq_tpu_torch.utils.convert, "
             "ppcseq_tpu_torch.infer.nuts, ppcseq_tpu_torch.infer.chains, "
             "ppcseq_tpu_torch.cli, ppcseq_tpu_torch.utils.checkpoint, "
-            "ppcseq_tpu_torch.viz.plots; "
+            "ppcseq_tpu_torch.viz.plots, ppcseq_tpu_torch.data.rdata, ppcseq_tpu_torch._native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'ppcseq_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
