@@ -40,6 +40,15 @@ so the exit code is non-zero):
              and bytes, ops, bound_us, bound_by, share_of_bound
              (= bound_us / device_us) from nb_kernel.work() on this run's
              branch shares.
+  4b. forms  the "analytic" and "fused" likelihood forms (masked_likelihood
+             with the closed-form gradients of ops/nb_grad; torch ops, no
+             kernel of their own) in float32 at (1, 21, 515), (128, 21, 515)
+             and (8, 100, 50000), with and without a baseline: value
+             against masked_likelihood in float64 (rtol 2e-5), gradients
+             against likelihood_grads in float32 (|d|/(1+|g|) < 1e-4) and
+             their error against float64; ms of a value + gradient call and
+             of a no_grad value, beside "plain" (masked_likelihood under
+             autograd).
   5. hmc     jittered HMC at full width: (a) bench.py's configuration
              (bundled cohort, no baseline, so flat_logp(dims) runs K2; ADVI
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
@@ -61,7 +70,17 @@ so the exit code is non-zero):
              starts; divergences <= 2%, rhat_max < 1.1; the row has the
              chains' own and the lockstep leapfrogs, the host syncs, the
              mean tree depth and the device's busy share over a short
-             profiled window.
+             profiled window. nuts-tree: the same run (generator, warm
+             start) with the model's tree as run_nuts's prototype
+             (smart_init(as_tree=True), dims=, tree_logp(dims)), cut to
+             NUTS_TREE_DRAWS draws: after tree_to_theta its draws must be
+             the flat run's first NUTS_TREE_DRAWS draws bit for bit
+             (SHA-256 of the bytes).
+  6b. sbc1   replication 0 of the SBC suite (ppcseq_tpu_torch/utils/sbc.py,
+             tests/test_torch_calibration.py) at its full constants in
+             float64 through "plain": S=10, G=14, 64 chains, warmup 600, 40
+             draws, L=32; its wall and ranks (finite draws, ranks in
+             {0..64}, held-out cells out of the likelihood).
   7. e2e     identify_outliers on the bundled data: the reference's 3-gene
              case on both VB CI paths and on the HMC, ChEES and NUTS
              branches (calls must be SLC16A12 0, CYP1A1 1, ART3 0), and the
@@ -106,9 +125,11 @@ so the exit code is non-zero):
              adapted step size >= 1e-2; (f) chains=2, the 3-gene case on
              ChEES (its chain statistics all-reduced), (0, 1, 0). Every
              rank's K1 launches are a path of the `kernels` line.
-Phase nuts, the e2e NUTS row and phase cli run in three child processes of
-this script on the same card (`--child nuts`, `--child e2e-nuts`, `--child
-cli`), started after phase kernel, beside the parent's phases hmc and e2e;
+Phases nuts, nuts-tree and sbc1, the e2e NUTS row and phase cli run in
+five child processes of this script on the same card (`--child nuts`,
+`--child nuts-tree`, `--child sbc1`, `--child e2e-nuts`, `--child cli`),
+started after phases kernel and forms, beside the parent's phases hmc and
+e2e;
 phase mesh runs in a fourth (`--child mesh`), started when the cli child
 has ended (both are mostly host work at 50k). The parent waits for them,
 echoes their rows and fails if any failed. Each path runs with the kernel
@@ -422,6 +443,72 @@ def phase_kernel(counts_df, device):
     return rows
 
 
+def phase_forms(counts_df, device):
+    """(i) The "analytic" and "fused" likelihood forms (nb_model.
+    analytic_likelihood, fused_likelihood: masked_likelihood with the
+    closed-form gradients of ops/nb_grad, torch ops on the card, no kernel
+    of their own) in float32 at A, H and Z, with and without a baseline,
+    beside "plain" (masked_likelihood under autograd): the value against
+    masked_likelihood in float64 (rtol 2e-5), the gradients against
+    likelihood_grads in float32 (|d|/(1+|g|) < 1e-4, as phase kernel holds
+    the kernels to their plain versions) and their error against float64
+    recorded; ms = median CUDA events around one value + gradient call,
+    value_ms around one no_grad value."""
+    import torch
+
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.ops import nb_grad
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
+    md = _bundled_prep(counts_df, fifteen, 500)
+    bundled = (md.counts, md.X, md.exposure_rate, md.n_check)
+    z = synthetic_cohort(n_genes=50000, n_samples=100, n_check=100, seed=0)[:3] + (100,)
+    forms = {"analytic": nb_model.analytic_likelihood, "fused": nb_model.fused_likelihood,
+             "plain": nb_model.masked_likelihood}
+    rows = []
+    for shape, B, cohort in (("A", 1, bundled), ("H", 128, bundled), ("Z", 8, z)):
+        base, alpha, log_phi, _ = _kernel_case(*cohort, B, 7, device)
+        for baseline in (True, False):
+            d = base if baseline else _strip_baseline(base)
+            d64 = dataclasses.replace(d, **{
+                f.name: getattr(d, f.name).double() for f in dataclasses.fields(d)
+                if f.name != "host" and getattr(d, f.name) is not None
+                and getattr(d, f.name).is_floating_point()})
+            a64, p64 = alpha.double(), log_phi.double()
+            want64 = (nb_model.masked_likelihood(d64, a64, p64),
+                      *nb_grad.likelihood_grads(d64.X, d64.exposure_rate, d64.counts,
+                                                d64.like_mask, a64, p64))
+            closed32 = nb_grad.likelihood_grads(d.X, d.exposure_rate, d.counts, d.like_mask,
+                                                alpha, log_phi)
+            for name, fn in forms.items():
+                def call(fn=fn, d=d):
+                    a = alpha.detach().requires_grad_(True)
+                    p = log_phi.detach().requires_grad_(True)
+                    v = fn(d, a, p)
+                    return (v.detach(), *torch.autograd.grad(v.sum(), (a, p)))
+
+                got = call()
+                torch.cuda.synchronize()
+                value_rel, grad_vs_f64, _ = _errors(got, want64)
+                grad_err = _errors((want64[0], *got[1:]), (want64[0], *closed32))[1]
+                with torch.no_grad():
+                    value_ms = _time_ms(lambda fn=fn, d=d: fn(d, alpha, log_phi), reps=10)
+                row = dict(form=name, shape=shape, B=B, S=d.counts.shape[0],
+                           G=d.counts.shape[1], baseline=baseline, value_rel_err_vs_f64=value_rel,
+                           grad_err_vs_f32_closed_form=grad_err, grad_err_vs_f64=grad_vs_f64,
+                           finite=all(bool(torch.isfinite(t).all()) for t in got),
+                           ms=_time_ms(call, reps=10), value_ms=value_ms)
+                print("phase forms " + json.dumps(row), flush=True)
+                gated = name != "plain"  # "plain" is autograd: its gradient is beside them
+                if not (row["finite"] and value_rel < 2e-5 and (grad_err < 1e-4 or not gated)):
+                    raise AssertionError(f"form {name} disagrees at {shape}: {row}")
+                rows.append(row)
+        del base, alpha, log_phi
+        torch.cuda.empty_cache()
+    return rows
+
+
 PATH_LAUNCHES: dict = {}  # path name -> kernel launch counts of its run
 
 
@@ -689,6 +776,7 @@ def phase_nuts(counts_df, device):
         return res, t1 - t0, time.perf_counter() - t1
 
     (res, advi_s, nuts_s), counts = _run_path("nuts", run, ["nb_glm_plain"])
+    DIGESTS["nuts"] = _digest(res.draws[:, :NUTS_TREE_DRAWS])
     sel = torch.as_tensor(np.r_[0:6, 6 + 2 * dims.G: 6 + 2 * dims.G + dims.n_check],
                           device=device)
     diag = summarize(res.draws[:, :, sel].cpu().numpy())
@@ -720,6 +808,78 @@ def phase_nuts(counts_df, device):
     if (not row["draws_finite"] or row["divergence_frac"] > 0.02 or not row["rhat_max"] < 1.1):
         raise AssertionError(f"nuts: {row}")
     return counts
+
+
+NUTS_TREE_DRAWS = 50  # per chain: the first draws of phase nuts's run
+DIGESTS: dict = {}  # run name -> SHA-256 of its flat draws' bytes
+
+
+def _digest(draws) -> str:
+    import hashlib
+
+    return hashlib.sha256(draws.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_nuts_tree(counts_df, device):
+    """(ii) run_nuts with the model's tree as its prototype
+    (smart_init(as_tree=True), dims=) through tree_logp(dims) at phase
+    nuts's configuration and generator, cut to NUTS_TREE_DRAWS draws: after
+    tree_to_theta its draws must be phase nuts's first NUTS_TREE_DRAWS
+    draws bit for bit (the parent compares the two runs' digests)."""
+    import torch
+
+    from ppcseq_tpu_torch.infer.nuts import run_nuts
+    from ppcseq_tpu_torch.model import nb_model, params
+
+    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
+    md = _bundled_prep(counts_df, fifteen, 500)
+    data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
+                                       device=device, dtype=torch.float32)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = _warm_start(nb_model.flat_logp(dims), data, dims, gen, device)
+        res = run_nuts(nb_model.tree_logp(dims), nb_model.smart_init(data, dims, as_tree=True),
+                       gen, data=data, dims=dims, num_chains=4, num_warmup=150,
+                       num_draws=NUTS_TREE_DRAWS, max_depth=10, init_theta=warm.mean,
+                       inv_mass_init=torch.exp(2.0 * warm.log_sd), device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    (res, wall), counts = _run_path("nuts tree", run, ["nb_glm_plain"])
+    DIGESTS["nuts tree"] = _digest(params.tree_to_theta(res.draws, dims))
+    row = dict(prototype="smart_init(as_tree=True)", D=dims.dim, draws_per_chain=NUTS_TREE_DRAWS,
+               wall_s=wall, leaves={k: list(v.shape) for k, v in res.draws.items()},
+               inv_mass_leaves={k: list(v.shape) for k, v in res.inv_mass.items()},
+               digest=DIGESTS["nuts tree"], launches=counts)
+    print("phase nuts-tree " + json.dumps(row), flush=True)
+    if set(res.draws) != params.model_tree_names(dims):
+        raise AssertionError(f"nuts tree: the draws are not the model's tree: {row}")
+
+
+def phase_sbc1(device):
+    """(iii) Replication 0 of the SBC suite (utils/sbc.py) at its full
+    constants, float64 through flat_logp(dims, "plain") as
+    tests/test_torch_calibration.py's suite (a) runs it: its wall and ranks.
+    It launches no kernel (the kernels take float32 only)."""
+    import torch
+
+    from ppcseq_tpu_torch.utils import sbc
+
+    out = sbc.replication(0, dtype=torch.float64, likelihood="plain", device=device)
+    ranks = {k: v.tolist() for k, v in out["ranks"].items()}
+    row = dict(rep=0, chains=sbc.N_CHAINS, warmup=sbc.NUM_WARMUP, draws=sbc.NUM_DRAWS,
+               L=sbc.NUM_LEAPFROG, wall_s=out["wall_s"], ranks=ranks,
+               advi_iterations=out["advi_iterations"], step_size=out["step_size"],
+               divergences=out["divergences"], accept_mean=out["accept_mean"],
+               chain_leapfrogs=out["num_leapfrog"], max_count=out["max_count"],
+               draws_finite=out["draws_finite"])
+    print("phase sbc1 " + json.dumps(row), flush=True)
+    in_range = all(0 <= r <= sbc.N_CHAINS for v in ranks.values() for r in v)
+    if not (out["draws_finite"] and in_range and not out["held_out_like_mask"].any()):
+        raise AssertionError(f"sbc1: {row}")
 
 
 def phase_e2e(counts_df, device, nuts_only=False):
@@ -1112,7 +1272,8 @@ def _mesh_case_hmc50k(args, device):
                     layout=layout, device=device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    res = run_hmc_tree(logp, dims, gen, data=local, mesh=mesh, num_chains=HMC50K["chains"],
+    res = run_hmc_tree(logp, dims.dim, gen, data=local, mesh=mesh, dims=dims,
+                       num_chains=HMC50K["chains"],
                        num_warmup=HMC50K["warmup"], num_draws=HMC50K["draws"],
                        num_leapfrog=HMC50K["L"], init_theta=warm.mean,
                        inv_mass=torch.exp(2.0 * warm.log_sd), device=device)
@@ -1345,24 +1506,30 @@ def phase_mesh(counts_df, device):
 # the same card, started once phase kernel has taken its device times alone,
 # beside the parent's phases hmc and e2e.
 E2E_NUTS = "3-gene NUTS approx"
-CHILDREN = ("nuts", "e2e-nuts", "cli")
+CHILDREN = ("nuts", "e2e-nuts", "cli", "nuts-tree", "sbc1")
 LATER_CHILD = ("mesh", "cli")  # started when the second has ended
 CHILD_RESULT = "chip_smoke child result "
 
 
 def _run_child(name, counts_df, device):
-    """`python3 chip_smoke.py --child nuts|e2e-nuts|cli`: the phase, then one
-    line with the launch counts of its paths and its K1 launches."""
+    """`python3 chip_smoke.py --child nuts|e2e-nuts|cli|nuts-tree|sbc1|mesh`:
+    the phase, then one line with the launch counts of its paths, its K1
+    launches and the digests of its draws."""
+    k1 = 0
     if name == "nuts":
         phase_nuts(counts_df, device)
-        k1 = 0
+    elif name == "nuts-tree":
+        phase_nuts_tree(counts_df, device)
+    elif name == "sbc1":
+        phase_sbc1(device)
     elif name == "cli":
         k1 = phase_cli(counts_df, device)
     elif name == "mesh":
         k1 = phase_mesh(counts_df, device)
     else:
         k1 = phase_e2e(counts_df, device, nuts_only=True)
-    print(CHILD_RESULT + json.dumps({"paths": PATH_LAUNCHES, "k1_launches": k1}), flush=True)
+    print(CHILD_RESULT + json.dumps({"paths": PATH_LAUNCHES, "k1_launches": k1,
+                                     "digests": DIGESTS}), flush=True)
 
 
 def _start_child(name):
@@ -1407,6 +1574,7 @@ def _finish_children(children, thread):
             raise AssertionError(f"child phase {name} failed (exit code {rc})")
         result = json.loads(results[0][len(CHILD_RESULT):])
         PATH_LAUNCHES.update(result["paths"])
+        DIGESTS.update(result["digests"])
         k1 += result["k1_launches"]
     return k1
 
@@ -1450,12 +1618,18 @@ def main() -> None:
     phase_host()
     counts_df = load_counts()
     kernel_rows = phase_kernel(counts_df, device)
+    phase_forms(counts_df, device)
     children, thread = _start_children()
     try:
         hmc_launches = phase_hmc(counts_df, device)
         k1_launches = phase_e2e(counts_df, device)
         print(f"phase parent done in {time.perf_counter() - t_start:.1f} s", flush=True)
         k1_launches += _finish_children(children, thread)
+        same = DIGESTS["nuts tree"] == DIGESTS["nuts"]
+        print(f"phase nuts-tree bitwise equal to phase nuts's first {NUTS_TREE_DRAWS} draws: "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"run_nuts over the model's tree drew other numbers: {DIGESTS}")
     finally:
         # on a failure, stop the children first: the thread waits for one
         for proc, _ in list(children.values()):

@@ -11,7 +11,14 @@ b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0, the schedule read at the
 pre-increment step count. Each step takes its noise `eps` as an argument,
 so the same noise can drive both packages.
 
-The log density takes a batch: `log_density(theta[B, D]) -> [B]`. The
+The log density takes a batch: `log_density(theta[B, D]) -> [B]`, or
+`log_density(theta, data)` when the fit is given `data` (JAX's operand
+form, `f(theta, data)` as nb_model.flat_logp returns it). The state is
+defined by a prototype, as in JAX: an int D, an example tensor, or a dict
+of them (model/params.state_spec). A structured state is fitted as its
+flat vector, and the density receives a dict of batched leaves
+[B, *leaf_shape]: the port's batched form of JAX's vmapped density. The
+result's mean and log_sd come back in the prototype's structure. The
 steps run eagerly, one small op at a time (~40 per step plus one
 likelihood launch); JAX ran each 100-step chunk as one compiled scan.
 
@@ -25,12 +32,14 @@ and the retry decision are global, so every rank takes the same branch.
 
 from __future__ import annotations
 
+import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.model.params import StateSpec, state_spec
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -45,12 +54,18 @@ class AdamState:
 
 @dataclass
 class ADVIResult:
-    mean: torch.Tensor  # [D] variational mean, on the fit's device
-    log_sd: torch.Tensor  # [D] variational log-stddev
+    mean: torch.Tensor | dict  # [D] variational mean, on the fit's device (or the state's tree)
+    log_sd: torch.Tensor | dict  # [D] variational log-stddev (or the state's tree)
     elbo: float
     elbo_trace: np.ndarray
     converged: bool
     iterations: int
+    spec: StateSpec | None = field(default=None, repr=False)  # the state's layout
+
+    def flat(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, log_sd) as [D] vectors."""
+        spec = self.spec or state_spec(self.mean)
+        return spec.flatten(self.mean), spec.flatten(self.log_sd)
 
 
 def elbo_estimate(log_density, m, log_s, eps):
@@ -115,9 +130,10 @@ def advi_step(params: dict, state: AdamState, eps, log_density, learning_rate: f
 
 def fit_advi(
     log_density,
-    dim: int,
+    prototype,
     generator: torch.Generator,
     *,
+    data=None,
     max_iter: int = 50000,
     tol_rel_obj: float = 0.005,
     eval_every: int = 100,
@@ -131,24 +147,34 @@ def fit_advi(
     device="cuda",
     dtype=torch.float32,
 ) -> ADVIResult:
-    """Fit meanfield ADVI over a [dim] vector state.
+    """Fit meanfield ADVI over the state `prototype` defines: an int D (a
+    [D] vector), an example tensor, or a dict of them (the module's
+    docstring). With `data`, the density is called as
+    `log_density(theta, data)`. `init_mean` may be given flat or in the
+    prototype's structure.
 
     Noise comes from `generator` (which must live on `device`). ELBO is
     estimated with `elbo_samples` draws every `eval_every` steps; stop when
     the mean or the median of the last `window` relative changes drops
     below tol_rel_obj (Stan ADVI's rule). `device` defaults to the card and
-    must exist (utils/device.resolve_device). With a gene `layout`, `dim`
-    is the global dimension, `log_density` the rank's local one, and
-    `init_mean` global or local; the result's mean and log_sd are local.
+    must exist (utils/device.resolve_device). With a gene `layout` the
+    state is flat: the prototype is the global dimension, `log_density` the
+    rank's local one, and `init_mean` global or local; the result's mean
+    and log_sd are local.
     """
     device = resolve_device(device)
     if layout is not None and layout.genes is None:
         layout = None  # no gene shard: the single-device fit
+    spec = state_spec(prototype)
+    if layout is not None and spec.structured:
+        raise ValueError("a gene-sharded fit takes a flat state (an int dim): a rank's state "
+                         "is its local flat vector in the global layout")
+    dim = spec.dim
     local_dim = dim if layout is None else layout.genes.dim
     if init_log_sd is None:
         init_log_sd = -1.0 if init_mean is not None else 0.0
     m0 = (
-        torch.as_tensor(init_mean, dtype=dtype, device=device).clone()
+        spec.flatten(init_mean, dtype=dtype, device=device).clone()
         if init_mean is not None
         else torch.zeros(dim, dtype=dtype, device=device)
     )
@@ -157,6 +183,9 @@ def fit_advi(
     params = {"m": m0,
               "log_s": torch.full((local_dim,), float(init_log_sd), dtype=dtype, device=device)}
     state = adam_init(params)
+    if data is not None:
+        log_density = functools.partial(_call_with_data, log_density, data)
+    log_density = spec.bind(log_density)
     density = log_density if layout is None else layout.density(log_density)
 
     elbos: list[float] = []
@@ -190,32 +219,43 @@ def fit_advi(
         elbos.append(elbo)
 
     return ADVIResult(
-        mean=params["m"],
-        log_sd=params["log_s"],
+        mean=spec.unflatten(params["m"]),
+        log_sd=spec.unflatten(params["log_s"]),
         elbo=elbos[-1] if elbos else float("nan"),
         elbo_trace=np.asarray(elbos),
         converged=converged,
         iterations=it,
+        spec=spec,
     )
 
 
-def advi_sample(result: ADVIResult, generator: torch.Generator, n_draws: int,
-                layout=None, dim: int | None = None) -> torch.Tensor:
-    """n_draws samples [n, D] from the fitted meanfield posterior; under a
-    gene `layout` the local coordinates of draws made for the global `dim`."""
-    m, log_s = result.mean, result.log_sd
+def _call_with_data(log_density, data, theta):
+    return log_density(theta, data)
+
+
+def advi_sample(result: ADVIResult, generator: torch.Generator, n_draws: int, dtype=None, *,
+                layout=None, dim: int | None = None):
+    """n_draws samples from the fitted meanfield posterior: [n, D] for a
+    flat state, else the state's tree with a leading [n] axis on every
+    leaf; in `dtype` (the fit's by default). Under a gene `layout` the
+    local coordinates of draws made for the global `dim`."""
+    spec = result.spec or state_spec(result.mean)
+    m, log_s = result.flat()
+    if dtype is not None:
+        m, log_s = m.to(dtype), log_s.to(dtype)
     if layout is not None and layout.genes is None:
         layout = None
     eps = normal_noise(generator, (n_draws,), m.shape[0] if layout is None else dim, layout,
                        m.device, m.dtype)
-    return m + torch.exp(log_s) * eps
+    return spec.unflatten(m + torch.exp(log_s) * eps)
 
 
 def vb_iterative(
     log_density,
-    dim: int,
+    prototype,
     generator: torch.Generator,
     *,
+    data=None,
     max_attempts: int = 5,
     min_elbo: float = -1e15,
     init_mean=None,
@@ -225,16 +265,17 @@ def vb_iterative(
     """Retry ADVI until it succeeds (reference `vb_iterative`,
     R/utilities.R:246-278). After the first failure the data-driven init
     is dropped in favour of the zero init. Under a gene `layout` the mean
-    must be finite on every rank."""
+    must be finite on every rank. `prototype` and `data` are fit_advi's."""
     last = None
     for attempt in range(max_attempts):
         res = fit_advi(
-            log_density, dim, generator,
+            log_density, prototype, generator,
+            data=data,
             init_mean=init_mean if attempt == 0 else None,
             layout=layout,
             **advi_kwargs,
         )
-        finite_mean = bool(torch.isfinite(res.mean).all())
+        finite_mean = bool(torch.isfinite(res.flat()[0]).all())
         if layout is not None:
             finite_mean = layout.all(finite_mean, res.mean.device)
         if np.isfinite(res.elbo) and res.elbo > min_elbo and finite_mean:

@@ -30,8 +30,12 @@ device once per draw; its sampler reads all the draws' L_t at once.
 
 Sharded runs (parallel/sharding.py): `run_hmc(mesh=)` splits the chain
 batch over a `chains` axis and, given the model's dims, the genes over a
-`genes` axis, each rank holding its local flat vector (`run_hmc_tree`, the
-counterpart of JAX's tree-state runner, hmc.py:500-732, is that call).
+`genes` axis, each rank holding its local flat vector. `run_hmc_tree`, the
+counterpart of JAX's tree-state runner (hmc.py:500-732), takes JAX's
+prototype (an int D, an example tensor, or a dict, model/params.state_spec)
+and runs run_hmc on its flat vector; with the model's dims a dict is the
+model's tree in the model's flat layout, the one state a `genes` axis
+shards.
 They run the single-device sampler's code, with the energies summed over
 the global state (one all-reduce per transition), every statistic across
 chains (the dual-averaging accept mean, ChEES's chain means, principal
@@ -45,11 +49,12 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.model.params import state_spec
 from ppcseq_tpu_torch.parallel.sharding import Layout, mesh_axes, shard_data
 from ppcseq_tpu_torch.utils.device import resolve_device
 
@@ -394,15 +399,62 @@ def run_hmc(
                          step_size0=step_size0, D=D, kw=kw)
 
 
-def run_hmc_tree(log_density, dims, generator: torch.Generator, *, data, num_chains: int = 8,
-                 mesh=None, **kwargs) -> HMCResult:
-    """Jittered-trajectory HMC over a gene-shardable state (hmc.py:633-732
-    of the JAX package, whose state is a pytree): run_hmc on the model's
-    flat state, each rank of a `genes` mesh axis holding its local vector.
-    `log_density` is nb_model.flat_logp(dims): `f(theta, data, shard)`;
-    the other arguments are run_hmc's."""
-    return run_hmc(log_density, dims.dim, generator, data=data, num_chains=num_chains,
-                   mesh=mesh, dims=dims, **kwargs)
+def sampler_spec(prototype, dims, mesh, who):
+    """The StateSpec of a sampler's prototype (model/params.state_spec).
+    Under a `genes` mesh axis a rank's state is its local flat vector in
+    the global layout, so the state must be flat or the model's tree;
+    anything else is a ValueError, raised before any collective."""
+    spec = state_spec(prototype, dims)
+    if (mesh is not None and spec.structured and spec.dims is None
+            and "genes" in mesh_axes(mesh)):
+        raise ValueError(
+            f"{who} over a 'genes' mesh axis takes a flat state or the model's tree "
+            "(a dict of model_tree_names(dims), with dims=): a rank's state is its local "
+            "flat vector in the global layout, and only the model's layout says which "
+            "coordinates are its genes")
+    return spec
+
+
+def structured_draws(spec, draws, genes):
+    """Flat per-chain values [chains, ..., D] (draws, or the inverse mass;
+    a tensor or an array) in the state's structure; under a gene shard,
+    genes = (g0, g1), in the rank's local layout."""
+    if spec.dims is not None and genes is not None:
+        spec = spec.localized(replace(spec.dims, G=genes[1] - genes[0]))
+    return spec.unflatten(draws)
+
+
+def run_hmc_tree(log_density, prototype, generator: torch.Generator, *, data=None,
+                 num_chains: int = 8, init_theta=None, inv_mass=None, mesh=None, dims=None,
+                 device="cuda", dtype=torch.float32, **kwargs) -> HMCResult:
+    """Jittered-trajectory HMC over the state `prototype` defines
+    (hmc.py:633-732 of the JAX package): an int D, an example tensor, or a
+    dict of them. The chains start at `init_theta` (the prototype's values
+    when None, zeros for an int) jittered by init_jitter normals, as in
+    JAX; `init_theta` and `inv_mass` may be flat or in the prototype's
+    structure. The density receives the state in its structure, with a
+    leading [chains] axis on every leaf, and the draws come back in it with
+    leading [chains, num_draws] axes.
+
+    With `dims`, a dict prototype whose keys are the model tree's is the
+    model's tree and enters the sampler through tree_to_theta, in the
+    model's flat layout: the run draws the flat run's random numbers, and
+    under a `genes` mesh axis each rank holds its local vector (the density
+    is then called with `shard=`, as nb_model.tree_logp(dims) takes it).
+    Any other structured state under a `genes` axis is a ValueError. The
+    other arguments are run_hmc's."""
+    device = resolve_device(device)
+    spec = sampler_spec(prototype, dims, mesh, "run_hmc_tree")
+    if init_theta is None:
+        init_theta = (torch.zeros(spec.dim, dtype=dtype, device=device)
+                      if isinstance(prototype, (int, np.integer)) else prototype)
+    kw = dict(dtype=dtype, device=device)
+    res = run_hmc(spec.bind(log_density), spec.dim, generator, data=data,
+                  num_chains=num_chains, init_theta=spec.flatten(init_theta, **kw),
+                  inv_mass=None if inv_mass is None else spec.flatten(inv_mass, **kw),
+                  mesh=mesh, dims=dims, device=device, dtype=dtype, **kwargs)
+    res.draws = structured_draws(spec, res.draws, res.genes)
+    return res
 
 
 def _length_generator(generator, device):

@@ -1,5 +1,6 @@
 """Multi-chain NUTS on a flat [chains, D] state, in torch
-(ppcseq_tpu/infer/nuts.py).
+(ppcseq_tpu/infer/nuts.py). A structured state (JAX's pytree prototype)
+runs as its flat vector (model/params.state_spec).
 
 Multinomial NUTS (Hoffman & Gelman 2014; Betancourt 2017) with the
 generalized U-turn criterion, built iteratively with O(max_depth) momentum
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from ppcseq_tpu_torch.infer.hmc import (_SINGLE, GeneratorDraws, LayoutDraws, leapfrog,
-                                        sampler_density)
+                                        sampler_density, sampler_spec, structured_draws)
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 MAX_DELTA_ENERGY = 1000.0  # Stan's divergence threshold
@@ -352,11 +353,11 @@ def _find_eps(grad_fn, z, lp, g, mass0, draws, counters):
 
 @dataclass
 class NUTSResult:
-    draws: torch.Tensor  # [chains, num_draws, D], left on the device
+    draws: torch.Tensor | dict  # [chains, num_draws, D] on the device, or the state's tree
     accept_prob: np.ndarray  # [chains, num_draws]
     divergences: np.ndarray  # [chains] count in the sampling phase
     step_size: np.ndarray  # [chains]
-    inv_mass: np.ndarray  # [chains, D]
+    inv_mass: np.ndarray | dict  # [chains, D], or the state's tree of [chains, ...] leaves
     num_leapfrog: int  # the chains' own leapfrog steps, warmup + sampling
     lockstep_leapfrog: int = 0  # leapfrogs computed: leaf steps x chains
     num_evals: int = 0  # batched log-density + gradient calls (B = chains each)
@@ -370,7 +371,7 @@ class NUTSResult:
 
 def run_nuts(
     log_density,
-    dim: int,
+    prototype,
     generator: torch.Generator,
     *,
     data=None,
@@ -388,10 +389,18 @@ def run_nuts(
     device="cuda",
     dtype=torch.float32,
 ) -> NUTSResult:
-    """Run multi-chain NUTS on a flat [dim] state; returns the post-warmup
-    draws [chains, num_draws, D].
+    """Run multi-chain NUTS on the state `prototype` defines: an int D (a
+    flat [D] state), an example tensor, or a dict of them
+    (model/params.state_spec); returns the post-warmup draws [chains,
+    num_draws, D], or the state's tree with leading [chains, num_draws]
+    axes, and the inverse mass in the same structure.
 
-    `log_density(theta[chains, D]) -> [chains]` (plus `data`, when given).
+    `log_density(theta[chains, D]) -> [chains]` (plus `data`, when given);
+    a structured state reaches it as its tree with a leading [chains] axis
+    on every leaf, and `init_theta` and `inv_mass_init` may be flat or in
+    its structure. With `dims`, a dict whose keys are the model tree's is
+    the model's tree, in the model's flat layout (tree_to_theta): the run
+    draws the flat run's random numbers.
     Chains start at uniform(-init_scale, init_scale), or at init_theta
     jittered by init_jitter normals; the inverse mass starts at
     inv_mass_init (ones by default). `generator` (on `device`) drives every
@@ -404,16 +413,15 @@ def run_nuts(
     data, shard)` over a rank's local vector. init_theta and inv_mass_init
     may be global or local. Each rank returns its own chains' draws in its
     local layout and its inv_mass; accept_prob, divergences and step_size
-    cover every chain.
+    cover every chain. Under a `genes` axis the state is flat or the
+    model's tree (hmc.sampler_spec).
     """
-    if not isinstance(dim, (int, np.integer)):
-        raise NotImplementedError(
-            "only a flat state of int dim is ported; a pytree prototype is not: a gene "
-            "shard's state is a local flat vector (parallel/sharding.py)")
+    spec = sampler_spec(prototype, dims, mesh, "run_nuts")
     device = resolve_device(device)
-    D = int(dim)
+    D = spec.dim
     kw = dict(device=device, dtype=dtype)
-    layout, grad_fn = sampler_density(log_density, data, mesh, dims, device, "run_nuts")
+    layout, grad_fn = sampler_density(spec.bind(log_density), data, mesh, dims, device,
+                                      "run_nuts")
     shard = layout.genes
     if layout is _SINGLE:
         draws = GeneratorDraws(generator, device, dtype)
@@ -425,10 +433,10 @@ def run_nuts(
     if init_theta is None:
         z = (2.0 * init_scale) * draws.init_uniform((n_local, d_local)) - init_scale
     else:
-        base = layout.local(torch.as_tensor(init_theta, **kw))
+        base = layout.local(spec.flatten(init_theta, **kw))
         z = base[None, :] + init_jitter * draws.momentum((n_local, d_local))
     mass0 = (torch.ones(d_local, **kw) if inv_mass_init is None
-             else layout.local(torch.as_tensor(inv_mass_init, **kw)))
+             else layout.local(spec.flatten(inv_mass_init, **kw)))
     inv_mass = mass0.expand(n_local, d_local).contiguous()
 
     counters = _Counters(layout)
@@ -478,17 +486,18 @@ def run_nuts(
         depth_sum = layout.gather_chains(torch.as_tensor(depth_sum, dtype=F64,
                                                          device=device).reshape(1)).sum()
         transitions *= layout.chains_size
+    genes = None if shard is None else (shard.g0, shard.g1)
     return NUTSResult(
-        draws=out.transpose(0, 1).contiguous(),
+        draws=structured_draws(spec, out.transpose(0, 1).contiguous(), genes),
         accept_prob=accept.cpu().numpy(),
         divergences=div.sum(dim=1).cpu().numpy(),
         step_size=eps.to(dtype).cpu().numpy(),
-        inv_mass=inv_mass.cpu().numpy(),
+        inv_mass=structured_draws(spec, inv_mass.cpu().numpy(), genes),
         num_leapfrog=int(steps.sum()),
         lockstep_leapfrog=counters.leaf_steps * num_chains,
         num_evals=counters.evals,
         host_syncs=counters.host_syncs,
         mean_depth=float(depth_sum) / max(transitions, 1),
         chains=None if layout is _SINGLE else (draws.c0, draws.c1),
-        genes=None if shard is None else (shard.g0, shard.g1),
+        genes=genes,
     )

@@ -12,12 +12,14 @@ Differences in form, not in math:
 - Host arrays stay on the host: `prepare_data` keeps NumPy copies of the
   uploaded arrays (`ModelData.host`), and `smart_init`/`with_baseline`
   compute from them in float64 without reading the device back.
-- The likelihood is chosen by `flat_logp(dims, likelihood)`: the default
-  ("auto" = "fast") is the hoisted kernel pair K1/K2 through ops/nb_kernel
-  (the CUDA kernels on the card, their plain versions on the CPU);
-  "plain" is torch autograd through `masked_likelihood`; "pallas" and
-  "pallas_fused" are the stable form (K5 under grad, K4 under no_grad) and
-  the one-pass K3.
+- The likelihood is chosen by `flat_logp(dims, likelihood)` (or
+  `tree_logp` over the model's tree): the default ("auto" = "fast") is the
+  hoisted kernel pair K1/K2 through ops/nb_kernel (the CUDA kernels on the
+  card, their plain versions on the CPU); "plain" is torch autograd
+  through `masked_likelihood`; "pallas" and "pallas_fused" are the stable
+  form (K5 under grad, K4 under no_grad) and the one-pass K3; "analytic"
+  and "fused" are `masked_likelihood` with the closed-form gradients of
+  ops/nb_grad (JAX's XLA custom-VJP forms, torch ops here too).
 - A gene shard (parallel/sharding.GeneShard) evaluates the same log joint
   on its own genes: `log_joint(..., shard=)` sums the per-gene terms over
   the shard's genes and adds the terms that appear once (the hyperpriors,
@@ -36,7 +38,7 @@ import torch
 
 from ppcseq_tpu_torch.model.params import theta_to_tree
 from ppcseq_tpu_torch.model.params import offsets as _offsets
-from ppcseq_tpu_torch.ops import nb_kernel
+from ppcseq_tpu_torch.ops import nb_grad, nb_kernel
 from ppcseq_tpu_torch.ops.nb import (
     _softplus,
     double_exponential_lpdf,
@@ -302,6 +304,59 @@ def delta_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor
     return torch.sum(data.like_mask * pts, dim=(1, 2), dtype=torch.float64)
 
 
+def _grads(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """The closed-form (dalpha[B, C, G], dlog_phi[B, G]) at the plain eta,
+    with or without a baseline, as JAX's analytic and fused forms take them
+    (nb_model.py:489-494 of the JAX package)."""
+    return nb_grad.likelihood_grads(data.X, data.exposure_rate, data.counts, data.like_mask,
+                                    alpha, log_phi)
+
+
+class _Analytic(torch.autograd.Function):
+    """masked_likelihood forward, closed-form backward scaled by the
+    cotangent; first-order only."""
+
+    @staticmethod
+    def forward(ctx, alpha, log_phi, data):
+        ctx.data = data
+        ctx.save_for_backward(alpha, log_phi)
+        return masked_likelihood(data, alpha, log_phi)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        alpha, log_phi = ctx.saved_tensors
+        dalpha, dlog_phi = _grads(ctx.data, alpha, log_phi)
+        grad_out = grad_out.to(dalpha.dtype)
+        return grad_out[:, None, None] * dalpha, grad_out[:, None] * dlog_phi, None
+
+
+def analytic_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """masked_likelihood [B] with closed-form gradients (nb_model.py:
+    478-567 of the JAX package): the same forward (the delta form under a
+    baseline, the stable form otherwise) and ops/nb_grad.likelihood_grads
+    at the plain eta as its backward. Not differentiable twice: the
+    samplers and ADVI take first derivatives only."""
+    return _Analytic.apply(alpha, log_phi, data)
+
+
+def _value_and_grads(data, alpha, log_phi, want_grads):
+    """(value, dalpha, dlog_phi) in one call, the `compute` of
+    nb_kernel._GradsInForward."""
+    return (masked_likelihood(data, alpha, log_phi),) + _grads(data, alpha, log_phi)
+
+
+def fused_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """masked_likelihood [B] with the closed-form gradients computed in the
+    forward and stashed; the backward scales them by the cotangent
+    (nb_model.py:570-670 of the JAX package). When nothing asks for a
+    gradient (no_grad, or inputs that do not require one: the ADVI ELBO,
+    the MH re-evaluation) only the value is computed, as JAX's primal.
+    First-order only."""
+    if nb_kernel._wants_grad(alpha, log_phi):
+        return nb_kernel._GradsInForward.apply(alpha, log_phi, data, _value_and_grads)
+    return masked_likelihood(data, alpha, log_phi)
+
+
 def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
     """Unfolded lgamma form of the masked likelihood, batched: alpha[B, C, G],
     log_phi[B, G] -> [B] (ground truth of the kernel tests; nb_kernel.py:
@@ -391,24 +446,22 @@ def log_joint(theta: torch.Tensor, data: ModelData, dims: ModelDims, *,
     return log_joint_tree(tree, data, dims, likelihood_fn=likelihood_fn, shard=shard)
 
 
-def make_log_density(data: ModelData, dims: ModelDims, likelihood_fn=None):
-    """Bind data: theta[B, D] -> [B]."""
-    return functools.partial(log_joint, data=data, dims=dims, likelihood_fn=likelihood_fn)
-
-
-_NOT_TO_PORT = ("the XLA-only likelihood variants 'analytic' and 'fused' are not ported "
-                "(ROADMAP.md, queue 1: not to port)")
+def make_log_density(data: ModelData, dims: ModelDims, likelihood_fn=None, tree: bool = False):
+    """Bind data: theta[B, D] -> [B], or with tree=True the model's tree
+    (leaves with a leading [B]) -> [B]."""
+    fn = log_joint_tree if tree else log_joint
+    return functools.partial(fn, data=data, dims=dims, likelihood_fn=likelihood_fn)
 
 
 def _resolve_likelihood_fn(likelihood: str):
     fns = {
         "plain": masked_likelihood,
+        "analytic": analytic_likelihood,
+        "fused": fused_likelihood,
         "fast": nb_kernel.nb_glm_likelihood_fast,
         "pallas": nb_kernel.nb_glm_likelihood,
         "pallas_fused": nb_kernel.nb_glm_likelihood_fused,
     }
-    if likelihood in ("analytic", "fused"):
-        raise NotImplementedError(_NOT_TO_PORT)
     if likelihood not in fns:
         raise ValueError(f"unknown likelihood {likelihood!r} (use one of {sorted(fns)} or 'auto')")
     return fns[likelihood]
@@ -418,7 +471,10 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     """Data-parametrized flat log density `f(theta[B, D], data) -> [B]`.
 
     likelihood: "plain" (torch autograd through `masked_likelihood`, delta
-    form when a baseline is attached), "fast" (nb_kernel.nb_glm_likelihood_fast:
+    form when a baseline is attached), "analytic" (the same forward, the
+    closed-form backward of ops/nb_grad), "fused" (the same value with the
+    closed-form gradients computed in the forward, the value alone when no
+    gradient is wanted), "fast" (nb_kernel.nb_glm_likelihood_fast:
     K1 with a baseline, K2 without), "pallas" (nb_kernel.nb_glm_likelihood:
     the stable form, value and gradients in one K5 launch, K4 under no_grad;
     baseline ignored),
@@ -438,16 +494,41 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     return f
 
 
+def tree_logp(dims: ModelDims, likelihood: str = "auto"):
+    """The model-tree counterpart of flat_logp (nb_model.py:824-838 of the
+    JAX package): `f(tree, data, shard=None) -> [B]` over the model's tree
+    with a leading [B] on every leaf (params.theta_to_tree), a gene shard's
+    local tree with `shard`. The likelihood routes are flat_logp's."""
+    lfn = _resolve_likelihood_fn("fast" if likelihood == "auto" else likelihood)
+
+    def f(tree, data, shard=None):
+        return log_joint_tree(tree, data, dims, likelihood_fn=lfn, shard=shard)
+
+    return f
+
+
+def _x_alpha(X: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """X[S, C] @ alpha[..., C, G] -> [..., S, G] as C explicit multiply-adds,
+    so no matmul setting (TF32 on CUDA) can round it."""
+    out = X[:, 0, None] * alpha[..., None, 0, :]
+    for c in range(1, X.shape[1]):
+        out = out + X[:, c, None] * alpha[..., None, c, :]
+    return out
+
+
+def lambda_log(params: dict, data: ModelData, dims: ModelDims) -> torch.Tensor:
+    """lambda_log_param[..., S, G] = X @ alpha (stan:205; nb_model.py:275 of
+    the JAX package) from constrained parameters with any leading axes."""
+    return _x_alpha(data.X, make_alpha(params, dims))
+
+
 def extract_lambda_sigma_draws(thetas: torch.Tensor, data: ModelData, dims: ModelDims):
     """(lambda_log_param[n, S, n_check], sigma_raw[n, n_check]) from draws
-    thetas[n, D] (reference R/utilities.R:1373). X @ alpha is C explicit
-    multiply-adds, so no matmul setting (TF32 on CUDA) can round it."""
+    thetas[n, D] (reference R/utilities.R:1373): lambda_log's multiply-adds
+    on the checked genes alone."""
     params, _ = unpack(thetas, dims)
     alpha = make_alpha(params, dims)[..., : dims.n_check]  # [n, C, K]
-    lam = data.X[:, 0, None] * alpha[:, None, 0, :]  # [S, 1] * [n, 1, K] -> [n, S, K]
-    for c in range(1, dims.C):
-        lam = lam + data.X[:, c, None] * alpha[:, None, c, :]
-    return lam, params["sigma_raw"][..., : dims.n_check]
+    return _x_alpha(data.X, alpha), params["sigma_raw"][..., : dims.n_check]
 
 
 def extract_alpha_sub_1_draws(thetas: torch.Tensor, dims: ModelDims) -> torch.Tensor:
@@ -455,8 +536,10 @@ def extract_alpha_sub_1_draws(thetas: torch.Tensor, dims: ModelDims) -> torch.Te
     return thetas[:, lo:hi]
 
 
-def smart_init(data: ModelData, dims: ModelDims):
-    """Data-driven initialization point in unconstrained space (float64).
+def smart_init(data: ModelData, dims: ModelDims, as_tree: bool = False):
+    """Data-driven initialization point in unconstrained space (float64):
+    a [D] NumPy vector, or with as_tree=True the model's tree of float64
+    tensors (params.theta_to_tree).
 
     Pure NumPy on `data.host` (the arrays that were uploaded): per-gene
     least squares of log depth-adjusted counts on the design gives
@@ -527,4 +610,6 @@ def smart_init(data: ModelData, dims: ModelDims):
         theta[o["intercept"][0] : o["intercept"][1]] = np.where(real, t_i, 0.0)
         theta[o["sigma_raw"][0] : o["sigma_raw"][1]] = np.where(real, t_s, 0.0)
 
+    if as_tree:
+        return theta_to_tree(torch.as_tensor(theta), dims)
     return theta

@@ -135,3 +135,17 @@ def skew_normal_lpdf(x, xi, omega, alpha):
 
 def double_exponential_lpdf(x, mu, sigma):
     return -torch.abs(x - mu) / sigma - math.log(2.0 * sigma)
+
+
+def nb2_log_rng(generator: torch.Generator, eta, phi) -> torch.Tensor:
+    """NegBinomial2(mu = exp(eta), phi) draws as int64, Stan's
+    neg_binomial_2_log_rng (stan:259-265; ops/nb.py:192 of the JAX
+    package): rate = exp(eta) / phi * Gamma(phi, 1), then Poisson(rate).
+    The Gamma is drawn in phi's dtype, the Poisson on float64 rates (exact
+    integers to 2^53; torch.poisson returns floating point), so float64
+    inputs keep the prior's extreme-precision corner (phi up to ~1e16 mu)
+    exact. eta and phi broadcast."""
+    shape = torch.broadcast_shapes(eta.shape, phi.shape)
+    g = torch._standard_gamma(phi.expand(shape).contiguous(), generator=generator)
+    rate = torch.exp(eta) / phi * g
+    return torch.poisson(rate.double(), generator=generator).to(torch.int64)

@@ -117,6 +117,7 @@ def do_inference(
     mcmc_sampler: str = "hmc",
     hmc_adapt_trajectory: bool = False,
     cores: int | None = None,
+    tol_rel_obj: float = 0.01,
     mesh=None,
     device="cuda",
     dtype=torch.float32,
@@ -127,6 +128,12 @@ def do_inference(
     ADVI warm start; NUTS takes its chain count from the draws and `cores`
     (default os.cpu_count()). `device` defaults to the card and must exist
     (utils/device.resolve_device).
+
+    `tol_rel_obj` is taken as JAX's do_inference takes it (identify.py:87,
+    209, 226 of the JAX package): the VB fit keeps the reference's
+    hard-coded K.VB_TOL_REL_OBJ (R/utilities.R:1491-1493) and the MCMC
+    branch's ADVI warm start its 0.01, whatever the argument;
+    identify_outliers passes its own on and warns when it is not 0.01.
 
     `mesh` (identify.py:122-182 of the JAX package):
     - a `genes` axis: the gene count is padded to a multiple of the axis,
@@ -207,7 +214,7 @@ def do_inference(
                 device=device,
                 dtype=dtype,
             )
-        thetas = advi_sample(res, g_draws, draws_practical, layout, dims.dim)
+        thetas = advi_sample(res, g_draws, draws_practical, layout=layout, dim=dims.dim)
         fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
         vb_iterations = res.iterations
     else:
@@ -620,7 +627,7 @@ def identify_outliers(
         exposure_by_sample=exposure_by_sample,
         approximate_posterior_inference=approximate_posterior_inference,
         pass_fit=pass_fit, mcmc_sampler=mcmc_sampler,
-        hmc_adapt_trajectory=hmc_adapt_trajectory, cores=cores,
+        hmc_adapt_trajectory=hmc_adapt_trajectory, cores=cores, tol_rel_obj=tol_rel_obj,
         # the reference reuses the same seed for both passes
         # (R/methods.R:284, 340-341)
         seed=seed, mesh=mesh, device=device, dtype=dtype,

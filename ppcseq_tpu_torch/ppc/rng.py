@@ -22,14 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.ops.nb import nb2_log_rng
+
 MAX_TILE_ELEMS = 64_000_000
-
-
-def _nb_draws(generator, eta, phi):
-    """NB2(mu=exp(eta), phi) draws as int64, via rate = mu/phi * Gamma(phi)."""
-    g = torch._standard_gamma(phi.expand(eta.shape).contiguous(), generator=generator)
-    rate = torch.exp(eta) / phi * g
-    return torch.poisson(rate.double(), generator=generator).to(torch.int64)
 
 
 def counts_rng_draws(
@@ -42,7 +37,7 @@ def counts_rng_draws(
     """Simulate counts_rng[n_draws, S, K] (stan:259-266), int64."""
     eta = lambda_log + exposure_rate[None, :, None]
     phi = torch.exp(-sigma_raw)[:, None, :] * truncation_compensation
-    return _nb_draws(generator, eta, phi)
+    return nb2_log_rng(generator, eta, phi)
 
 
 def _summarize_split(draws: torch.Tensor, adj_prob_threshold: float) -> dict:
@@ -176,6 +171,6 @@ def approximated_ci(
         sig = sig_blk[idx][:, None, :]  # [n_super, 1, kb]
         eta = lam + exposure_rate[None, :, None]
         phi = torch.exp(-sig) * truncation_compensation
-        draws = _nb_draws(generator, eta, phi)
+        draws = nb2_log_rng(generator, eta, phi)
         outs.append(summarize_draws(draws, adj_prob_threshold))
     return _concat_summaries(outs)

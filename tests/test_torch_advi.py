@@ -132,3 +132,69 @@ def test_fit_advi_stops_on_the_relative_elbo_rule():
                    init_log_sd=0.0, tol_rel_obj=0.5, device="cpu", dtype=torch.float64)
     assert res.converged and res.iterations == 300 and len(res.elbo_trace) == 3
     assert math.isfinite(res.elbo)
+
+
+def test_fit_advi_data_operand_is_the_bound_density():
+    """fit_advi(data=) calls log_density(theta, data), as JAX's `bind`
+    (advi.py:75-78): flat_logp's f(theta, data) with data= gives the bits of
+    the same density bound by hand."""
+    rng = np.random.default_rng(2)
+    S, G = 5, 6
+    counts = rng.integers(0, 200, size=(S, G))
+    X = np.column_stack([np.ones(S), rng.integers(0, 2, size=S).astype(float)])
+    data, dims = nb_model.prepare_data(counts, X, rng.normal(0, .2, S), 2, device="cpu",
+                                       dtype=torch.float64)
+    data = nb_model.with_baseline(data, dims)
+    logp = nb_model.flat_logp(dims, "plain")
+    init = nb_model.smart_init(data, dims)
+    kw = dict(init_mean=init, max_iter=40, eval_every=20, device="cpu", dtype=torch.float64)
+    a = fit_advi(logp, dims.dim, torch.Generator().manual_seed(0), data=data, **kw)
+    b = fit_advi(lambda th: logp(th, data), dims.dim, torch.Generator().manual_seed(0), **kw)
+    assert torch.equal(a.mean, b.mean) and torch.equal(a.log_sd, b.log_sd)
+    assert a.elbo == b.elbo
+    c = vb_iterative(logp, dims.dim, torch.Generator().manual_seed(0), data=data, **kw)
+    assert torch.equal(c.mean, a.mean)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("approx", [True, False], ids=["vb", "mcmc-warm-start"])
+def test_do_inference_takes_tol_rel_obj_as_jax(approx, monkeypatch):
+    """do_inference(tol_rel_obj=0.02), through identify_outliers as JAX
+    passes it (identify.py:779 of the JAX package), reaches both VB fits -
+    the VB fit and the MCMC branch's ADVI warm start - with the tolerances
+    JAX's fits use there (identify.py:209, 226): the reference's hard-coded
+    ones, whatever the argument. Each fit is stopped once it is called."""
+    from ppcseq_tpu import identify_outliers as j_identify
+    from ppcseq_tpu import load_counts as j_load
+    from ppcseq_tpu.pipeline import identify as jid
+    from ppcseq_tpu_torch import identify_outliers, load_counts
+    from ppcseq_tpu_torch.pipeline import identify as tid
+
+    seen = {}
+
+    def recorder(pkg, fit):
+        def fn(*args, tol_rel_obj=None, **kwargs):
+            seen.setdefault(pkg, []).append((fit, tol_rel_obj))
+            raise _Stop
+
+        return fn
+
+    for pkg, mod in (("jax", jid), ("torch", tid)):
+        for fit in ("vb_iterative", "fit_advi"):
+            monkeypatch.setattr(mod, fit, recorder(pkg, fit))
+    kw = dict(formula="~ Label", sample="sample", transcript="symbol", abundance="value",
+              significance="PValue", do_check="is_significant", percent_false_positive_genes=5,
+              how_many_negative_controls=50, approximate_posterior_inference=approx,
+              tol_rel_obj=0.02, seed=42)
+    for pkg, run, load, extra in (("jax", j_identify, j_load, {}),
+                                  ("torch", identify_outliers, load_counts,
+                                   dict(device="cpu", dtype=torch.float64))):
+        counts = load()
+        counts = counts.assign(is_significant=counts.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+        with pytest.warns(UserWarning, match="tol_rel_obj"), pytest.raises(_Stop):
+            run(counts, **kw, **extra)
+    fit = "vb_iterative" if approx else "fit_advi"
+    assert seen["torch"] == seen["jax"] == [(fit, 0.005 if approx else 0.01)]

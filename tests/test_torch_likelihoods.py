@@ -296,6 +296,10 @@ _ROUTES = {
     "auto": (True, "fast"),
     "pallas": (False, "analytic"),  # stable forward, likelihood_grads backward
     "pallas_fused": (True, "analytic"),  # delta forward, likelihood_grads backward
+    "analytic": (True, "analytic"),
+    "analytic-nobaseline": (False, "analytic"),
+    "fused": (True, "fused"),
+    "fused-nobaseline": (False, "fused"),
 }
 
 
@@ -351,12 +355,70 @@ def test_flat_logp_kernel_routes_match_jax_pallas_interpret(name):
 
 
 def test_flat_logp_names_that_are_not_ported_or_unknown():
-    dims = nb_model.ModelDims(S=2, G=3, C=1, n_check=1, G_unpadded=3)
+    """Every name of JAX's `_resolve_likelihood_fn` is ported: "analytic"
+    and "fused" (once refused here) give JAX's value and gradients in
+    float64 at a C = 3 model; an unknown name is a ValueError."""
+    rng = np.random.default_rng(4)
+    S, G = 5, 7
+    counts = rng.poisson(30.0, size=(S, G))
+    X = np.column_stack([np.ones(S), rng.integers(0, 2, S).astype(float), rng.normal(size=S)])
+    jdata, jdims = jnb.prepare_data(counts, X, rng.normal(0, .2, S), 2, dtype=jnp.float64)
+    jdata = jnb.with_baseline(jdata, jdims)
+    tdata, tdims = model_from_arrays(jdata, jdims, dtype=torch.float64)
+    theta = jnb.smart_init(jdata, jdims) + 0.1 * rng.normal(size=jdims.dim)
     for name in ("analytic", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            nb_model.flat_logp(dims, name)
+        t = torch.as_tensor(theta)[None].requires_grad_(True)
+        lp = nb_model.flat_logp(tdims, name)(t, tdata)
+        lp.sum().backward()
+        jv, jg = jax.jit(jax.value_and_grad(jnb.flat_logp(jdims, name)))(jnp.asarray(theta),
+                                                                          jdata)
+        np.testing.assert_allclose(float(lp.detach()[0]), float(jv), rtol=1e-10)
+        np.testing.assert_allclose(t.grad[0].numpy(), np.asarray(jg), rtol=1e-10,
+                                   atol=1e-10 * np.abs(np.asarray(jg)).max())
+    dims = nb_model.ModelDims(S=2, G=3, C=1, n_check=1, G_unpadded=3)
     with pytest.raises(ValueError, match="unknown likelihood"):
         nb_model.flat_logp(dims, "nope")
+
+
+@pytest.mark.parametrize("baseline", [False, True], ids=["stable", "delta"])
+def test_analytic_and_fused_gradients_are_closed_form_and_fused_skips_them_without_grad(
+        baseline, monkeypatch):
+    """Both forms take the gradient as JAX does: likelihood_grads at the
+    plain eta scaled by the cotangent, even when the forward runs in the
+    delta form (JAX nb_model.py:489-494). "analytic" calls it in the
+    backward; "fused" in the forward, and not at all when nothing asks for
+    a gradient (JAX's primal, nb_model.py:578-581): the ADVI ELBO and the
+    MH re-evaluation pay for the value alone."""
+    jdata, jdims, alpha, log_phi = _case(S=6, G=20, B=3, seed=8, baseline=baseline)
+    tdata, _ = model_from_arrays(jdata, jdims, dtype=torch.float64)
+    calls = []
+    real = nb_grad.likelihood_grads
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(nb_grad, "likelihood_grads", counted)
+    cot = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    want_a, want_p = real(tdata.X, tdata.exposure_rate, tdata.counts, tdata.like_mask,
+                          torch.as_tensor(alpha), torch.as_tensor(log_phi))
+    want_v = nb_model.masked_likelihood(tdata, torch.as_tensor(alpha), torch.as_tensor(log_phi))
+    for name, fn in (("analytic", nb_model.analytic_likelihood),
+                     ("fused", nb_model.fused_likelihood)):
+        a = torch.as_tensor(alpha).requires_grad_(True)
+        p = torch.as_tensor(log_phi).requires_grad_(True)
+        calls.clear()
+        with torch.no_grad():
+            v = fn(tdata, a, p)
+        assert calls == [], name
+        assert torch.equal(v, want_v), name
+        v = fn(tdata, a, p)
+        assert len(calls) == (1 if name == "fused" else 0), name
+        (v * cot).sum().backward()
+        assert len(calls) == 1, name
+        assert torch.equal(v.detach(), want_v), name
+        torch.testing.assert_close(a.grad, cot[:, None, None] * want_a, rtol=0, atol=0)
+        torch.testing.assert_close(p.grad, cot[:, None] * want_p, rtol=0, atol=0)
 
 
 def test_fused_entry_raises_without_baseline():

@@ -159,3 +159,76 @@ def test_extract_lambda_sigma_draws_match_jax():
         nb_model.extract_alpha_sub_1_draws(torch.as_tensor(thetas), tdims).numpy(),
         np.asarray(jnb.extract_alpha_sub_1_draws(jnp.asarray(thetas), jdims)),
     )
+
+
+def _jax_tree_case(non_centered, seed=3):
+    counts, X, exposure, exclude = _arrays(S=6, G=9, C=3, seed=seed)
+    jdata, jdims = jnb.prepare_data(counts, X, exposure, 3, exclude_mask=exclude,
+                                    non_centered=non_centered, dtype=jnp.float64)
+    jdata = jnb.with_baseline(jdata, jdims)
+    tdata, tdims = model_from_arrays(jdata, jdims, dtype=torch.float64)
+    return jdata, jdims, tdata, tdims
+
+
+@pytest.mark.parametrize("non_centered", [False, True], ids=["centered", "non_centered"])
+def test_tree_logp_smart_init_and_make_log_density_tree_match_jax(non_centered):
+    """smart_init(as_tree=True), tree_logp(dims) and make_log_density(tree=
+    True) against JAX's, leaf by leaf in float64 (value rtol 1e-12, each
+    leaf's gradient rtol 1e-9). JAX's density is unbatched and vmapped; the
+    port's takes the leaves with a leading batch axis. make_log_density's
+    default likelihood is the port's default route, "fast" (JAX's is
+    "plain"), so JAX's side is given fast_likelihood."""
+    jdata, jdims, tdata, tdims = _jax_tree_case(non_centered)
+    jtree = jnb.smart_init(jdata, jdims, as_tree=True)
+    ttree = nb_model.smart_init(tdata, tdims, as_tree=True)
+    assert set(ttree) == set(jtree)
+    for k in jtree:
+        assert ttree[k].dtype == torch.float64 and ttree[k].shape == jtree[k].shape, k
+        np.testing.assert_allclose(ttree[k].numpy(), np.asarray(jtree[k]), rtol=1e-12,
+                                   atol=1e-14, err_msg=k)
+    rng = np.random.default_rng(4)
+    batch = {k: np.asarray(v)[None] + 0.1 * rng.normal(size=(3,) + np.shape(v))
+             for k, v in jtree.items()}
+    for jf, tf in ((jnb.tree_logp(jdims, "plain"), nb_model.tree_logp(tdims, "plain")),
+                   (lambda t, d: jnb.make_log_density(jdata, jdims, jnb.fast_likelihood,
+                                                      tree=True)(t),
+                    lambda t, d: nb_model.make_log_density(tdata, tdims, tree=True)(t))):
+        jv, jg = jax.jit(jax.vmap(jax.value_and_grad(jf), in_axes=(0, None)))(
+            {k: jnp.asarray(v) for k, v in batch.items()}, jdata)
+        leaves = {k: torch.as_tensor(v).requires_grad_(True) for k, v in batch.items()}
+        lp = tf(leaves, tdata)
+        lp.sum().backward()
+        np.testing.assert_allclose(lp.detach().numpy(), np.asarray(jv), rtol=1e-12)
+        for k in batch:
+            want = np.asarray(jg[k])
+            np.testing.assert_allclose(leaves[k].grad.numpy(), want, rtol=1e-9,
+                                       atol=1e-9 * max(np.abs(want).max(), 1.0), err_msg=k)
+
+
+def test_lambda_log_matches_jax():
+    """lambda_log = X @ alpha as C multiply-adds, batched, at rtol 1e-12."""
+    jdata, jdims, tdata, tdims = _jax_tree_case(False, seed=6)
+    thetas = np.random.default_rng(7).normal(size=(4, jdims.dim))
+    params, _ = nb_model.unpack(torch.as_tensor(thetas), tdims)
+    got = nb_model.lambda_log(params, tdata, tdims)
+    assert got.shape == (4, tdims.S, tdims.G)
+    for b in range(4):
+        jp, _ = jnb.unpack(jnp.asarray(thetas[b]), jdims)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(jnb.lambda_log(jp, jdata, jdims)),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_nb2_rng_moments():
+    """tests/test_model.py:92-100 on the port: nb2_log_rng at eta = 3,
+    phi = 2, 200,000 draws: mean within 2%, variance within 5%."""
+    from ppcseq_tpu_torch.ops.nb import nb2_log_rng
+
+    eta, phi = 3.0, 2.0
+    draws = nb2_log_rng(torch.Generator().manual_seed(0), torch.full((200000,), eta),
+                        torch.full((200000,), phi))
+    assert draws.dtype == torch.int64
+    mu = np.exp(eta)
+    var = mu + mu**2 / phi
+    m, v = float(draws.double().mean()), float(draws.double().var(correction=0))
+    assert abs(m - mu) / mu < 0.02
+    assert abs(v - var) / var < 0.05

@@ -22,6 +22,7 @@ from ppcseq_tpu_torch.infer.chains import (
     mcmc_iterations,
 )
 from ppcseq_tpu_torch.infer.hmc import logp_and_grad
+from ppcseq_tpu_torch.model import nb_model
 
 torch.set_num_threads(2)
 
@@ -245,9 +246,17 @@ def test_nuts_on_banana_no_nans():
 
 
 def test_run_nuts_refuses_what_is_not_ported():
+    """A mesh must be a DeviceMesh; a pytree prototype is ported, but under
+    a `genes` mesh axis only a flat state or the model's tree is, and any
+    other tree is a ValueError that names the reason, before any
+    collective."""
+    from torch_mesh_stub import MeshOf
+
     gen = torch.Generator()
     for kw in (dict(mesh=object()), dict(mesh=object(), dims=object())):
         with pytest.raises(TypeError, match="DeviceMesh"):
             nuts.run_nuts(lambda x: -x.pow(2).sum(1), 2, gen, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="pytree"):
-        nuts.run_nuts(lambda x: -x.pow(2).sum(1), {"a": np.zeros(2)}, gen, device="cpu")
+    dims = nb_model.ModelDims(S=2, G=4, C=2, n_check=1, G_unpadded=4)
+    with pytest.raises(ValueError, match="local flat vector in the global layout"):
+        nuts.run_nuts(lambda x: -x["a"].pow(2).sum(1), {"a": np.zeros(2)}, gen,
+                      mesh=MeshOf(genes=2), dims=dims, device="cpu")

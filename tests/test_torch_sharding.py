@@ -61,8 +61,10 @@ def _value_and_grad(f, theta, *args):
 
 @pytest.mark.parametrize("n,n_check,likelihood", [
     (1, K, "auto"), (2, K, "auto"), (3, 20, "auto"), (4, K, "auto"),
-    (3, 20, "plain"), (2, K, "pallas"), (3, 20, "pallas_fused")],
-    ids=["n1", "n2", "n3-pad-span", "n4", "n3-plain", "n2-pallas", "n3-pallas_fused"])
+    (3, 20, "plain"), (2, K, "pallas"), (3, 20, "pallas_fused"), (2, K, "analytic"),
+    (3, 20, "fused")],
+    ids=["n1", "n2", "n3-pad-span", "n4", "n3-plain", "n2-pallas", "n3-pallas_fused",
+         "n2-analytic", "n3-fused"])
 def test_local_densities_sum_to_the_unsharded(n, n_check, likelihood):
     """Satellite 1c: sum over r < n of rank r's local lp equals the
     unsharded lp (rtol 1e-12), and the gene gradients of each rank plus the
@@ -157,7 +159,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from ppcseq_tpu_torch.infer.advi import fit_advi
 from ppcseq_tpu_torch.infer.hmc import run_hmc, run_hmc_tree
 from ppcseq_tpu_torch.infer.nuts import run_nuts
-from ppcseq_tpu_torch.model import nb_model
+from ppcseq_tpu_torch.model import nb_model, params
 from ppcseq_tpu_torch.parallel import sharding
 sys.path.insert(0, os.path.dirname(out))
 import cohort  # noqa: E402  written beside this script by the test
@@ -187,9 +189,13 @@ for name, mesh in meshes.items():
                     eval_every=25, init_mean=init, layout=layout, device="cpu",
                     dtype=torch.float64)
     advi_logp = sharding.COLLECTIVES["logp"]
-    hmc = run_hmc_tree(logp, dims, torch.Generator().manual_seed(1), data=data, mesh=mesh,
-                       num_chains=4, num_warmup=20, num_draws=10, num_leapfrog=4,
-                       init_theta=init, device="cpu", dtype=torch.float64)
+    hmc_kw = dict(data=data, mesh=mesh, dims=dims, num_chains=4, num_warmup=20, num_draws=10,
+                  num_leapfrog=4, device="cpu", dtype=torch.float64)
+    hmc = run_hmc_tree(logp, dims.dim, torch.Generator().manual_seed(1), init_theta=init,
+                       **hmc_kw)
+    # the model's tree as the prototype: the chains start at its values
+    tree = run_hmc_tree(nb_model.tree_logp(dims), nb_model.smart_init(data, dims, as_tree=True),
+                        torch.Generator().manual_seed(1), **hmc_kw)
     nuts = run_nuts(logp, dims.dim, torch.Generator().manual_seed(2), data=data, mesh=mesh,
                     dims=dims, num_chains=2, num_warmup=20, num_draws=5, max_depth=5,
                     init_theta=init, device="cpu", dtype=torch.float64)
@@ -203,6 +209,9 @@ for name, mesh in meshes.items():
         hmc_draws=layout.gather(hmc.draws).tolist(), hmc_step=hmc.step_size,
         hmc_accept=hmc.accept_prob.tolist(), hmc_genes=list(hmc.genes),
         hmc_chains=list(hmc.chains),
+        tree_is_flat=torch.equal(params.tree_to_theta(tree.draws, layout.genes.local_dims),
+                                 hmc.draws),
+        tree_shapes=sorted((k, list(v.shape)) for k, v in tree.draws.items()),
         hmc_replicated=torch.cat([hmc.draws[..., :lo], hmc.draws[..., hi:]], -1).tolist(),
         nuts_draws=layout.gather(nuts.draws).tolist(), nuts_step=nuts.step_size.tolist(),
         nuts_replicated=torch.cat([nuts.draws[..., :lo], nuts.draws[..., hi:]], -1).tolist(),
@@ -283,9 +292,9 @@ def unsharded(group):
     advi = fit_advi(lambda t: logp(t, data), dims.dim, torch.Generator().manual_seed(0),
                     max_iter=50, eval_every=25, init_mean=init, device="cpu",
                     dtype=torch.float64)
-    hmc = run_hmc_tree(logp, dims, torch.Generator().manual_seed(1), data=data, num_chains=4,
-                       num_warmup=20, num_draws=10, num_leapfrog=4, init_theta=init,
-                       device="cpu", dtype=torch.float64)
+    hmc = run_hmc_tree(logp, dims.dim, torch.Generator().manual_seed(1), data=data, dims=dims,
+                       num_chains=4, num_warmup=20, num_draws=10, num_leapfrog=4,
+                       init_theta=init, device="cpu", dtype=torch.float64)
     nuts = run_nuts(logp, dims.dim, torch.Generator().manual_seed(2),
                     data=data, num_chains=2, num_warmup=20, num_draws=5, max_depth=5,
                     init_theta=init, device="cpu", dtype=torch.float64)
@@ -360,6 +369,20 @@ def test_one_all_reduce_per_value_and_gradient(group):
             assert got["hmc_genes"] == [g0, g0 + 24]
             c0 = 2 * got["chains_rank"]
             assert got["hmc_chains"] == (expect_chains or [c0, c0 + 2])
+
+
+def test_model_tree_state_under_a_genes_mesh(group):
+    """run_hmc_tree over the model's tree (smart_init(as_tree=True), with
+    dims=) enters through tree_to_theta: on every rank its draws are the
+    flat run's bits, handed back as the rank's local tree (24 of 48 genes,
+    leading [its chains, 10 draws])."""
+    for r, res in enumerate(group[0]):
+        for mesh, chains in (("genes2", 4), ("chains2xgenes2", 2)):
+            got = res[mesh]
+            assert got["tree_is_flat"], (r, mesh)
+            shapes = dict((k, v) for k, v in got["tree_shapes"])
+            assert shapes["intercept"] == shapes["sigma_raw"] == [chains, 10, 24]
+            assert shapes["alpha_sub_1"] == [chains, 10, K] and shapes["lambda_mu"] == [chains, 10]
 
 
 def test_chain_sharded_chees_equals_unsharded(group, unsharded_chees):
