@@ -232,7 +232,7 @@ def _sass(tag):
     from ppcseq_tpu_torch.ops import _build, nb_kernel
 
     for source in nb_kernel.SOURCES:
-        if source == "nb_glm_delta.cu":
+        if source in ("nb_glm_delta.cu", "nb_glm_fast64.cu"):  # K3-K5 only
             continue
         fns = _functions(_build._lib_path(source))
         names = _demangle(list(fns))

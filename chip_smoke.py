@@ -125,6 +125,26 @@ so the exit code is non-zero):
              adapted step size >= 1e-2; (f) chains=2, the 3-gene case on
              ChEES (its chain statistics all-reduced), (0, 1, 0). Every
              rank's K1 launches are a path of the `kernels` line.
+ 10. dtype   the float64 path: identify_outliers(dtype=torch.float64) on
+             the card, through the float64 forms of K1 and K2
+             (csrc/nb_glm_fast64.cu). (a) Each form against its plain
+             version (nb_fast in float64 on the card) at A (1, 21, 515), H
+             (128, 21, 515), Z (8, 100, 50000) and V (1, 100, 50000) with
+             gradients and W (100, 100, 50000) value-only: value rtol 1e-10,
+             gradients |d|/(1+|g|) < 1e-10; rows as phase kernel's, the
+             bound on the card's FP64 peak. (b) The 3-gene case at float64
+             on both VB CI paths: (0, 1, 0), the float64 form of K1 the only
+             kernel launched. (c) The 15-gene README configuration in
+             float32 and in float64: both walls and the (transcript,
+             sample) calls that differ; CYP1A1 and LYZ called in both. (d)
+             Phase cli's 50k x 100 table at float64 once, with the command
+             line's arguments (in the cli child, after phase cli): wall,
+             peak device memory, launches, injected cells flagged (at least
+             half) and the calls that differ from the command line's cold
+             float32 run. (e) A short float64 HMC run of flat_logp(dims)
+             without a baseline (the float64 form of K2 only). (b), (c) and
+             (e) run in the parent after phase e2e, beside the children; (a)
+             after the children have ended, with the card to itself.
 Phases nuts, nuts-tree and sbc1, the e2e NUTS row and phase cli run in
 five child processes of this script on the same card (`--child nuts`,
 `--child nuts-tree`, `--child sbc1`, `--child e2e-nuts`, `--child cli`),
@@ -274,25 +294,27 @@ def _bundled_prep(counts_df, check_genes, controls):
     )
 
 
-def _kernel_case(counts, X, exposure, n_check, B, seed, device):
-    """Model data on the card with one fully masked gene and ~2% excluded
-    points, and B parameter rows around the smart-init point."""
+def _kernel_case(counts, X, exposure, n_check, B, seed, device, dtype=None):
+    """Model data on the card (float32 unless `dtype` says otherwise) with
+    one fully masked gene and ~2% excluded points, and B parameter rows
+    around the smart-init point."""
     import torch
 
     from ppcseq_tpu_torch.model import nb_model
 
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
     S, G = counts.shape
     exclude = rng.uniform(size=(S, G)) < 0.02
     masked_gene = G - 1
     exclude[:, masked_gene] = True
     data, dims = nb_model.prepare_data(
-        counts, X, exposure, n_check, exclude_mask=exclude, device=device, dtype=torch.float32
+        counts, X, exposure, n_check, exclude_mask=exclude, device=device, dtype=dtype
     )
     data = nb_model.with_baseline(data, dims)
     theta0 = nb_model.smart_init(data, dims)
     theta = theta0[None, :] + 0.05 * rng.standard_normal((B, dims.dim))
-    params, _ = nb_model.unpack(torch.as_tensor(theta, dtype=torch.float32, device=device), dims)
+    params, _ = nb_model.unpack(torch.as_tensor(theta, dtype=dtype, device=device), dims)
     alpha = nb_model.make_alpha(params, dims).contiguous()
     log_phi = (-params["sigma_raw"]).contiguous()
     return data, alpha, log_phi, masked_gene
@@ -316,7 +338,8 @@ def _calls(data, alpha, log_phi, grads=True):
     """kernel name -> (kernel call, plain call), each returning
     (value,) or (value, dalpha, dlog_phi) for the given inputs. With
     grads=False, K1 and K2 run their value-only instantiation. K1's and K2's
-    plain versions take at most PLAIN_CHUNK_POINTS points per call."""
+    plain versions take at most PLAIN_CHUNK_POINTS points per call. On
+    float64 inputs K1 and K2 are their float64 forms."""
     from ppcseq_tpu_torch.model import nb_model
     from ppcseq_tpu_torch.ops import nb_fast, nb_grad, nb_kernel
 
@@ -330,7 +353,9 @@ def _calls(data, alpha, log_phi, grads=True):
         return {
             "nb_glm_delta": (
                 lambda: tup(nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, a, d.alpha0,
-                                                   p, d.sigma_raw0, want_grads=grads)),
+                                                   p, d.sigma_raw0, want_grads=grads,
+                                                   sp_d0=d.sp_d0, sig_neg_d0=d.sig_neg_d0,
+                                                   y_sp0=d.y_sp0)),
                 lambda: _in_chunks(lambda a_, p_: tup(nb_fast.glm_delta(
                     d.X, d.counts, d.like_mask, d.alpha0, d.sigma_raw0, d.d0, d.sp_d0,
                     d.sig_neg_d0, d.y_sp0, a_, p_, grads)), a, p, rows)),
@@ -1176,14 +1201,213 @@ def _cli_mcmc_product(counts_df, device):
 
 def phase_cli(counts_df, device):
     """The product surface: the 50k command-line batch run and its resume,
-    `python -m ppcseq_tpu_torch`, and the MCMC product options. Returns the
-    K1 launches of its in-process paths."""
+    `python -m ppcseq_tpu_torch`, and the MCMC product options; then phase
+    dtype's (d) on the same table. Returns the K1 launches of its in-process
+    paths."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         k1 = _cli_batch(device, tmp)
         _cli_module(counts_df, tmp)
-    return k1 + _cli_mcmc_product(counts_df, device)
+        k1 += _cli_mcmc_product(counts_df, device)
+        _dtype_50k(device, tmp)  # phase dtype (d), against the cold run's table
+    return k1
+
+
+# ---- phase dtype: the float64 path on the card ------------------------------
+
+def phase_dtype_kernels(counts_df, device):
+    """(a) of phase dtype: the float64 forms of K1 and K2 against their
+    plain versions (nb_fast.glm_delta / glm_plain in float64 on the card) at
+    A (1, 21, 515), H (128, 21, 515), Z (8, 100, 50000) and V (1, 100,
+    50000) with gradients and W (100, 100, 50000) value-only: value rtol
+    1e-10, gradients |d|/(1+|g|) < 1e-10, one launch of the form and no
+    other kernel per call, float64 outputs, exactly zero gradients for the
+    masked gene. Rows as phase kernel's, the bound on the card's FP64 peak.
+    Returns the rows."""
+    import torch
+
+    from ppcseq_tpu_torch.ops import nb_kernel
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
+    md = _bundled_prep(counts_df, fifteen, 500)
+    bundled = (md.counts, md.X, md.exposure_rate, md.n_check)
+    z = synthetic_cohort(n_genes=50000, n_samples=100, n_check=100, seed=0)[:3] + (100,)
+    cases = [("A", 1, bundled, True), ("H", 128, bundled, True), ("Z", 8, z, True),
+             ("V", 1, z, True), ("W", 100, z, False)]
+    rows = []
+    for shape, B, cohort, grads in cases:
+        data, alpha, log_phi, g_m = _kernel_case(*cohort, B, 7, device, dtype=torch.float64)
+        S, G = data.counts.shape
+        C = data.X.shape[1]
+        shares = nb_kernel.branch_shares(data, alpha, log_phi)
+        calls = _calls(data, alpha, log_phi, grads)[0]
+        for name in nb_kernel.F64_FORMS:
+            kern_fn, plain_fn = calls[name[:-len("_f64")]]
+            torch.cuda.synchronize()
+            nb_kernel.reset_launches()
+            kern = kern_fn()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in nb_kernel.LAUNCHES.items() if v}
+            plain = plain_fn()
+            val_rel, grad_err, mabs = _errors(kern, plain)
+            zero = len(kern) == 1 or bool((kern[1][:, :, g_m] == 0).all()
+                                          and (kern[2][:, g_m] == 0).all())
+            finite = all(bool(torch.isfinite(t).all()) for t in kern)
+            f64 = all(t.dtype == torch.float64 for t in kern)
+            ok = (val_rel < 1e-10 and grad_err < 1e-10 and zero and finite and f64
+                  and launched == {name: 1})
+            t_k = _time_ms(kern_fn, reps=20)
+            t_p = _time_ms(plain_fn, reps=3, warmup=1) if G > 1000 else _time_ms(plain_fn)
+            dev_us, n_cuda, n_records, dev_source = _device_us(kern_fn, 20 if G > 1000 else 200)
+            w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
+            row = dict(kernel=name, shape=shape, B=B, S=S, G=G, grads=grads,
+                       value_rel_err=val_rel, grad_err=grad_err, max_abs_err=mabs,
+                       launched=launched, float64_outputs=f64, masked_gene_zero_grad=zero,
+                       finite=finite, device_us=dev_us, device_us_source=dev_source,
+                       cuda_kernels_per_call=n_cuda, kernel_records_per_call=n_records,
+                       call_ms=t_k, plain_ms=t_p, bytes=w["bytes"], ops=w["ops"],
+                       bound_us=w["bound_us"], bound_by=w["bound_by"],
+                       share_of_bound=w["bound_us"] / dev_us,
+                       kernel_points_per_s=B * S * G / (dev_us * 1e-6), branch_shares=shares)
+            print("phase dtype " + json.dumps(row), flush=True)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at {shape}: {row}")
+            rows.append(row)
+        del data, alpha, log_phi, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _cells(res, transcript):
+    """(sample, transcript) -> (ppc passed, deleterious) of an
+    identify_outliers table, as _cell_calls reads them from the CSV."""
+    return {(s, t): (bool(p), bool(d))
+            for t, swd in zip(res[transcript], res.sample_wise_data)
+            for s, p, d in zip(swd["sample"], swd["posterior_predictive_check_succeded"],
+                               swd["deleterious_outliers"])}
+
+
+def _differing(a, b):
+    return sum(a[k] != b.get(k) for k in a) + sum(k not in a for k in b)
+
+
+def phase_dtype_e2e(counts_df, device):
+    """(b), (c) and (e) of phase dtype: the reference's 3-gene case at
+    dtype=torch.float64 on both VB CI paths (calls (0, 1, 0), the float64
+    form of K1 the only kernel launched); the 15-gene README configuration
+    (seed 42) in float32 and in float64, with both walls and the
+    (transcript, sample) calls that differ (CYP1A1 and LYZ called in both);
+    a short float64 HMC run of flat_logp(dims) without a baseline on the
+    same cohort (bench.py's 128 chains, cut to warmup 20, 10 draws, L=8),
+    which launches the float64 form of K2 and no other kernel."""
+    import torch
+
+    from ppcseq_tpu_torch import identify_outliers
+    from ppcseq_tpu_torch.infer.hmc import run_hmc
+    from ppcseq_tpu_torch.model import nb_model
+
+    f32, f64 = torch.float32, torch.float64
+    common = dict(formula="~ Label", sample="sample", transcript="symbol",
+                  abundance="value", significance="PValue", do_check="is_significant",
+                  seed=42, device=device)
+    three = counts_df.assign(is_significant=counts_df.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+    for approx in (True, False):
+        name = f"dtype 3-gene VB {'approx' if approx else 'exact'} float64"
+        t0 = time.perf_counter()
+        res, counts = _run_path(name, lambda: identify_outliers(
+            three, **common, percent_false_positive_genes=1, how_many_negative_controls=50,
+            approximate_posterior_analysis=approx, dtype=f64), ["nb_glm_delta_f64"])
+        calls = dict(zip(res.symbol, map(int, res.tot_deleterious_outliers)))
+        row = dict(run=name, wall_s=time.perf_counter() - t0, calls=calls,
+                   vb_iterations=list(res.attrs["vb_iterations"]))
+        print("phase dtype " + json.dumps(row), flush=True)
+        if calls != {"SLC16A12": 0, "CYP1A1": 1, "ART3": 0}:
+            raise AssertionError(f"{name}: calls {calls} differ from the reference's (0, 1, 0)")
+        if {k for k, v in counts.items() if v} != {"nb_glm_delta_f64"}:
+            raise AssertionError(f"{name}: launched {counts}")
+
+    fifteen = counts_df.assign(is_significant=counts_df.FDR < 0.01)
+    walls, cells, totals = {}, {}, {}
+    for dtype, kernel in ((f32, "nb_glm_delta"), (f64, "nb_glm_delta_f64")):
+        name = f"dtype 15-gene VB {str(dtype)[6:]}"
+        t0 = time.perf_counter()
+        res, counts = _run_path(name, lambda: identify_outliers(
+            fifteen, **common, percent_false_positive_genes=5, dtype=dtype), [kernel])
+        walls[dtype] = time.perf_counter() - t0
+        cells[dtype] = _cells(res, "symbol")
+        totals[dtype] = dict(zip(res.symbol, map(int, res.tot_deleterious_outliers)))
+        if not (totals[dtype].get("CYP1A1", 0) >= 1 and totals[dtype].get("LYZ", 0) >= 1):
+            raise AssertionError(f"{name}: CYP1A1 and LYZ must both be called: {totals[dtype]}")
+    row = dict(run="dtype 15-gene VB float32 vs float64", config="scripts/readme_run.py",
+               wall_s={"float32": walls[f32], "float64": walls[f64]}, cells=len(cells[f32]),
+               cells_differing=_differing(cells[f32], cells[f64]),
+               calls={"float32": totals[f32], "float64": totals[f64]})
+    print("phase dtype " + json.dumps(row), flush=True)
+
+    fifteen_genes = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
+    md = _bundled_prep(counts_df, fifteen_genes, 500)
+    data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
+                                       device=device, dtype=f64)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    res, counts = _run_path("dtype hmc float64 no baseline", lambda: run_hmc(
+        nb_model.flat_logp(dims), dims.dim, gen, data=data, num_chains=128, num_warmup=20,
+        num_draws=10, num_leapfrog=8, init_theta=nb_model.smart_init(data, dims),
+        device=device, dtype=f64), ["nb_glm_plain_f64"])
+    row = dict(run="dtype hmc float64 no baseline", chains=128, warmup=20, draws=10, L=8,
+               wall_s=time.perf_counter() - t0, draws_dtype=str(res.draws.dtype),
+               draws_finite=bool(torch.isfinite(res.draws).all()),
+               step_size=np.asarray(res.step_size).tolist(),
+               mean_accept=float(res.accept_prob.mean()), launches=counts)
+    print("phase dtype " + json.dumps(row), flush=True)
+    if not row["draws_finite"] or res.draws.dtype != f64:
+        raise AssertionError(f"dtype hmc float64: {row}")
+    if {k for k, v in counts.items() if v} != {"nb_glm_plain_f64"}:
+        raise AssertionError(f"dtype hmc float64: launched {counts}")
+
+
+def _dtype_50k(device, tmp):
+    """(d) of phase dtype, in the cli child after phase cli: phase cli's 50k
+    x 100 table through identify_outliers(dtype=torch.float64) with the
+    command line's arguments, once: its wall, peak device memory and
+    launches (the float64 form of K1 only), the injected cells it flags and
+    the (transcript, sample) calls that differ from the command line's cold
+    float32 run in `tmp`."""
+    import pandas as pd
+    import torch
+
+    from ppcseq_tpu_torch import identify_outliers
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    df = pd.read_parquet(os.path.join(tmp, "cohort.parquet"))
+    want, _ = _cell_calls(os.path.join(tmp, "cold"))
+    spiked = set(map(tuple, synthetic_cohort(**CLI_COHORT)[3]["outliers"]))
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res, counts = _run_path("dtype 50k float64", lambda: identify_outliers(
+        df, formula="~ Label", sample="sample", transcript="transcript", abundance="count",
+        significance="PValue", do_check="do_check", percent_false_positive_genes=1.0,
+        how_many_negative_controls=CLI_COHORT["n_genes"] - CLI_COHORT["n_check"],
+        draws_after_tail=10, seed=42, device=device, dtype=torch.float64),
+        ["nb_glm_delta_f64"])
+    wall = time.perf_counter() - t0
+    got = _cells(res, "transcript")
+    flagged = {(int(s[1:]), int(t[1:])) for (s, t), (ppc, _) in got.items() if not ppc}
+    row = dict(run="dtype 50k float64", config="scripts/bench_pipeline_scale.py's arguments",
+               wall_s=wall, peak_device_bytes=torch.cuda.max_memory_allocated(device),
+               launches={k: v for k, v in counts.items() if v}, result_rows=len(res),
+               cells=len(got), cells_differing_from_float32_cold=_differing(want, got),
+               ppc_differing=sum(want[k][0] != got.get(k, (None,))[0] for k in want),
+               deleterious_calls=int(res.tot_deleterious_outliers.sum()),
+               injected_outlier_cells=len(spiked), injected_cells_flagged=len(spiked & flagged),
+               vb_iterations=list(res.attrs["vb_iterations"]))
+    print("phase dtype " + json.dumps(row), flush=True)
+    if {k for k, v in counts.items() if v} != {"nb_glm_delta_f64"}:
+        raise AssertionError(f"dtype 50k float64: launched {counts}")
+    if len(res) != CLI_COHORT["n_check"] or 2 * row["injected_cells_flagged"] < len(spiked):
+        raise AssertionError(f"dtype 50k float64: {row}")
 
 
 # ---- phase mesh: ranks of torchrun on the one card ---------------------------
@@ -1623,6 +1847,7 @@ def main() -> None:
     try:
         hmc_launches = phase_hmc(counts_df, device)
         k1_launches = phase_e2e(counts_df, device)
+        phase_dtype_e2e(counts_df, device)
         print(f"phase parent done in {time.perf_counter() - t_start:.1f} s", flush=True)
         k1_launches += _finish_children(children, thread)
         same = DIGESTS["nuts tree"] == DIGESTS["nuts"]
@@ -1642,14 +1867,20 @@ def main() -> None:
                 proc.kill()
                 proc.wait()
             out.close()
+    # (a) of phase dtype, with the card to itself again
+    kernel_rows += phase_dtype_kernels(counts_df, device)
     print(f"phase done in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # each kernel's time at the shape its path gives it: K1 the ADVI step
-    # (1, 21, 515), K2 the bench HMC (128, 21, 515), K3-K5 the scale HMC
-    # (8, 100, 50000). "ms" is the device time per call; "call_ms" what a
-    # caller waits for one call (CUDA events around it).
-    shape_of = {"nb_glm_delta": (1, 515), "nb_glm_plain": (128, 515)}
+    # each kernel's time at the shape its path gives it: K1 and its float64
+    # form the ADVI step (1, 21, 515), K2 and its float64 form the bench HMC
+    # (128, 21, 515), K3-K5 the scale HMC (8, 100, 50000). "ms" is the device
+    # time per call; "call_ms" what a caller waits for one call (CUDA events
+    # around it).
+    shape_of = {"nb_glm_delta": (1, 515), "nb_glm_plain": (128, 515),
+                "nb_glm_delta_f64": (1, 515), "nb_glm_plain_f64": (128, 515)}
     launches = dict(hmc_launches, nb_glm_delta=k1_launches)
+    for name in nb_kernel.F64_FORMS:  # the paths of phase dtype
+        launches[name] = sum(c.get(name, 0) for c in PATH_LAUNCHES.values())
     kernels = []
     for name, (source, replaces) in nb_kernel.KERNELS.items():
         B, G = shape_of.get(name, (8, 50000))
@@ -1658,7 +1889,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE_DIR + source, "replaces": replaces,
             "launches": launches[name],
-            "launches_by_path": {path: c[name] for path, c in PATH_LAUNCHES.items() if c[name]},
+            "launches_by_path": {path: c[name] for path, c in PATH_LAUNCHES.items()
+                                 if c.get(name)},
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if r["kernel"] == name),
             "ms": row["device_us"] * 1e-3, "device_us": row["device_us"],
             "ms_source": row["device_us_source"],

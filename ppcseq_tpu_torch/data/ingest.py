@@ -46,9 +46,17 @@ def check_integer_counts(df: pd.DataFrame, abundance: str) -> None:
 
 
 def check_rectangular(df: pd.DataFrame, sample: str, transcript: str) -> None:
-    """Every transcript must be present in all samples (reference R/utilities.R:1360)."""
+    """Every transcript must be present in all samples (reference R/utilities.R:1360).
+    A missing (NaN) sample or transcript key is a ValueError naming its
+    column: pd.factorize codes it -1, which the pair arithmetic below would
+    take for another key."""
     codes_t, uniq_t = pd.factorize(df[transcript])
     codes_s, uniq_s = pd.factorize(df[sample])
+    for role, column, codes in (("sample", sample, codes_s), ("transcript", transcript, codes_t)):
+        n_missing = int(np.count_nonzero(codes < 0))
+        if n_missing:
+            raise ValueError(f"The {role} column {column!r} has {n_missing} missing keys (NaN); "
+                             "every row needs a sample and a transcript")
     n_t, n_s = len(uniq_t), len(uniq_s)
     # distinct (sample, transcript) pairs, counted per transcript — all in C
     pair = codes_s.astype(np.int64) * n_t + codes_t

@@ -357,6 +357,16 @@ def fused_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor
     return masked_likelihood(data, alpha, log_phi)
 
 
+def fast_likelihood(data: ModelData, alpha: torch.Tensor, log_phi: torch.Tensor):
+    """The hoisted value + gradient likelihood (ops/nb_fast) [B], a drop-in
+    `likelihood_fn` (nb_model.py:738-751 of the JAX package): the delta form
+    when baseline constants are attached. On the card K1/K2
+    (nb_kernel.nb_glm_likelihood_fast; in float64 their float64 forms), on
+    the CPU their plain versions, nb_fast.glm_delta/glm_plain. First-order
+    only, like the analytic and fused forms."""
+    return nb_kernel.nb_glm_likelihood_fast(data, alpha, log_phi)
+
+
 def nb_glm_loglik_reference(X, alpha, log_phi, exposure, counts, mask):
     """Unfolded lgamma form of the masked likelihood, batched: alpha[B, C, G],
     log_phi[B, G] -> [B] (ground truth of the kernel tests; nb_kernel.py:
@@ -458,7 +468,7 @@ def _resolve_likelihood_fn(likelihood: str):
         "plain": masked_likelihood,
         "analytic": analytic_likelihood,
         "fused": fused_likelihood,
-        "fast": nb_kernel.nb_glm_likelihood_fast,
+        "fast": fast_likelihood,
         "pallas": nb_kernel.nb_glm_likelihood,
         "pallas_fused": nb_kernel.nb_glm_likelihood_fused,
     }
@@ -474,8 +484,8 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     form when a baseline is attached), "analytic" (the same forward, the
     closed-form backward of ops/nb_grad), "fused" (the same value with the
     closed-form gradients computed in the forward, the value alone when no
-    gradient is wanted), "fast" (nb_kernel.nb_glm_likelihood_fast:
-    K1 with a baseline, K2 without), "pallas" (nb_kernel.nb_glm_likelihood:
+    gradient is wanted), "fast" (fast_likelihood: K1 with a baseline, K2
+    without, or in float64 their float64 forms), "pallas" (nb_kernel.nb_glm_likelihood:
     the stable form, value and gradients in one K5 launch, K4 under no_grad;
     baseline ignored),
     "pallas_fused" (nb_kernel.nb_glm_likelihood_fused: K3, needs a

@@ -1,7 +1,8 @@
 """The NB2-log GLM likelihood kernels: wrappers, launch counts and autograd.
 
 Five CUDA kernels replace the five Pallas TPU kernels of
-ppcseq_tpu/ops/nb_kernel.py (built at first use by ops/_build.py):
+ppcseq_tpu/ops/nb_kernel.py, and K1 and K2 have a float64 form beside them
+(built at first use by ops/_build.py):
 
 | name                | TPU kernel      | source           | plain version                  |
 |---------------------|-----------------|------------------|--------------------------------|
@@ -10,22 +11,29 @@ ppcseq_tpu/ops/nb_kernel.py (built at first use by ops/_build.py):
 | K3 nb_glm_fused     | _fused_dkernel  | nb_glm_fused.cu  | delta_likelihood + likelihood_grads |
 | K4 nb_glm_stable_fwd| _fwd_kernel     | nb_glm_stable.cu | nb_model.stable_likelihood     |
 | K5 nb_glm_stable_bwd| _bwd_kernel     | nb_glm_stable.cu | stable_likelihood + likelihood_grads |
+| K1 nb_glm_delta_f64 | _fastk_delta    | nb_glm_fast64.cu | nb_fast.glm_delta (float64)    |
+| K2 nb_glm_plain_f64 | _fastk_plain    | nb_glm_fast64.cu | nb_fast.glm_plain (float64)    |
 
 The entries, each `(data, alpha[B,C,G], log_phi[B,G]) -> value[B]` (float64) and
 differentiable in alpha and log_phi, are the JAX package's:
-- `nb_glm_likelihood_fast`: K1 when the data carry a baseline, K2 when not.
+- `nb_glm_likelihood_fast`: K1 when the data carry a baseline, K2 when not;
+  in float64 (data, alpha and log_phi all float64) their float64 forms, as
+  JAX computes its float64 "fast" likelihood with XLA from ops/nb_fast.
   Value and gradients in one pass; under no_grad the value-only
   instantiation.
 - `nb_glm_likelihood`: the stable form, baseline ignored. K5 (value and
-  gradients in one pass); under no_grad K4 (value only).
+  gradients in one pass); under no_grad K4 (value only). float32 only, as
+  JAX's Pallas routes.
 - `nb_glm_likelihood_fused`: K3, delta form; raises without a baseline.
+  float32 only.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the kernel's plain version. There is no fallback. `LAUNCHES` counts
 the launches of each kernel (CUDA only); `reset_launches()` zeroes them.
 `layout()` chooses the launch layout of each kernel per shape;
-`work()` counts a call's bytes and FP32 operations for its bound
-(chip_smoke.py), on the branch shares of `branch_shares()`.
+`work()` counts a call's bytes and operations (FP32, or FP64 for the
+float64 forms) for its bound (chip_smoke.py), on the branch shares of
+`branch_shares()`.
 """
 
 from __future__ import annotations
@@ -45,7 +53,10 @@ KERNELS = {
     "nb_glm_fused": ("nb_glm_fused.cu", "ppcseq_tpu/ops/nb_kernel.py:236"),
     "nb_glm_stable_fwd": ("nb_glm_stable.cu", "ppcseq_tpu/ops/nb_kernel.py:64"),
     "nb_glm_stable_bwd": ("nb_glm_stable.cu", "ppcseq_tpu/ops/nb_kernel.py:80"),
+    "nb_glm_delta_f64": ("nb_glm_fast64.cu", "ppcseq_tpu/ops/nb_kernel.py:487"),
+    "nb_glm_plain_f64": ("nb_glm_fast64.cu", "ppcseq_tpu/ops/nb_kernel.py:476"),
 }
+F64_FORMS = ("nb_glm_delta_f64", "nb_glm_plain_f64")
 SOURCES = tuple(dict.fromkeys(src for src, _ in KERNELS.values()))
 
 LAUNCHES = {name: 0 for name in KERNELS}  # kernel launches (CUDA tensors only)
@@ -56,9 +67,11 @@ _SIGNATURES = {
     "nb_glm_fast_launch": [_P] * 14 + [_I] * 11 + [_P],
     "nb_glm_fused_launch": [_P] * 13 + [_I] * 10 + [_P],
     "nb_glm_stable_launch": [_P] * 11 + [_I] * 10 + [_P],
+    "nb_glm_fast64_launch": [_P] * 17 + [_I] * 6 + [_P],
 }
 _MAX_C_FN = {"nb_glm_delta.cu": "nb_glm_fast_max_c", "nb_glm_fused.cu": "nb_glm_fused_max_c",
-             "nb_glm_stable.cu": "nb_glm_stable_max_c"}
+             "nb_glm_stable.cu": "nb_glm_stable_max_c",
+             "nb_glm_fast64.cu": "nb_glm_fast64_max_c"}
 _FNS: dict = {}
 
 
@@ -68,10 +81,11 @@ def reset_launches() -> None:
 
 
 # ---- work of one call, for the kernels' bounds ------------------------------
-# The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
-# FP32 operations/s outside the tensor cores.
+# The card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s, and
+# FP32 and FP64 operations/s outside the tensor cores (67 and 34 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 # FP32 operations per point and per (b, g), counted from csrc/ along the
 # branch each point takes. A stated approximation, for ranking only: expf,
@@ -81,6 +95,12 @@ FP32_OPS_PER_S = 67e12
 # branch, expm1/e1 on its expf branch, the far branch as phi * softplus(d).
 EXP, LOG, DIV = 8, 20, 10
 _LOG1P = 2 * DIV + 15  # log1p01 and log1p_wide's series (nb_common.cuh)
+# The float64 forms (nb_glm_fast64.cu), in FP64 instructions: the card has
+# no special-function unit for double, so exp and log are software
+# sequences (range reduction, a polynomial, scaling) of about 20 and 25
+# instructions, and an IEEE divide about 10 (a reciprocal seed and Newton
+# steps). A stated approximation, as above.
+EXP64, LOG64, DIV64 = 20, 25, 10
 
 # Data-dependent branch shares (fractions of the B*S*G points) assumed when
 # work() is not given the run's own (branch_shares).
@@ -97,21 +117,25 @@ def _ops_per_point(name, C, grads, sh):
     small, big_phi = sh["y_le7"], sh["y_gt7_phi_ge8"]
     small_phi = 1.0 - small - big_phi  # y > 7, phi < 8
     series, mid = sh["series"], sh["mid"]
-    if name in ("nb_glm_delta", "nb_glm_plain"):  # nb_glm_delta.cu
-        delta = name == "nb_glm_delta"
-        pt = 1 + 2 * C + EXP + _LOG1P + 4 + (2 if delta else 1) + 5
-        datum = small * 12 + (1 - small) * (LOG + DIV + 2)
-        if delta:  # baseline rebuilt from d0; hybrid increments
-            datum += EXP + _LOG1P + DIV + 4
-            pt += 2 + mid * (EXP + DIV + 2 * _LOG1P + 11) + (1 - mid) * 6
+    if name in ("nb_glm_delta", "nb_glm_plain") + F64_FORMS:  # nb_glm_delta.cu, nb_glm_fast64.cu
+        delta = name.startswith("nb_glm_delta")
+        f64 = name in F64_FORMS
+        exp_, log_, div_ = (EXP64, LOG64, DIV64) if f64 else (EXP, LOG, DIV)
+        log1p = 2 * div_ + 15
+        pt = 1 + 2 * C + exp_ + log1p + 4 + (2 if delta else 1) + 5
+        datum = small * 12 + (1 - small) * (log_ + div_ + 2)
+        if delta:  # hybrid increments; K1 rebuilds the baseline from d0, the
+            # float64 form reads it
+            datum += 0 if f64 else exp_ + log1p + div_ + 4
+            pt += 2 + mid * (exp_ + div_ + 2 * log1p + 11) + (1 - mid) * 6
         else:
             pt += 1
-        big_y = DIV + _LOG1P + 17
-        pt += small * 15 + big_phi * (big_y + _LOG1P + 7) + small_phi * (big_y + 4)
+        big_y = div_ + log1p + 17
+        pt += small * 15 + big_phi * (big_y + log1p + 7) + small_phi * (big_y + 4)
         if grads:
-            pt += EXP + DIV + 14 + 2 * C + series * (EXP + 16) + (1 - series) * 3
-            pt += small * 14 + big_phi * 14 + small_phi * (DIV + 12)
-        return pt, EXP + 9 * LOG + 10 * DIV + 40 + C, datum
+            pt += exp_ + div_ + 14 + 2 * C + series * (exp_ + 16) + (1 - series) * 3
+            pt += small * 14 + big_phi * 14 + small_phi * (div_ + 12)
+        return pt, exp_ + 9 * log_ + 10 * div_ + 40 + C, datum
     # nb_tile.cuh forms K3-K5: nb2_part1's rest per point (nb_common.cuh
     # part1_point), its phi terms per (b, g) (build_part1), 1/(y+1) and
     # 1/(y+1)^3 per (s, g)
@@ -133,28 +157,34 @@ def _ops_per_point(name, C, grads, sh):
 
 
 def work(name, B, S, C, G, want_grads=True, shares=None):
-    """Bytes and FP32 operations of one call of kernel `name` at (B, S, C, G),
+    """Bytes and operations of one call of kernel `name` at (B, S, C, G),
     and the least time the card could take for them.
 
     Bytes: each input read once and each output written once (counts int32,
-    mask, d0 or exposure, X, alpha, alpha0, log_phi, sigma_raw0; value,
-    dalpha, dlog_phi), scratch not counted. Operations: _ops_per_point along
-    the branches in `shares` (DEFAULT_SHARES where not given), each term as
-    often as the function needs it (per point, per (b, g) or per (s, g)),
-    not as often as a launch layout happens to compute it. Returns a dict
-    with bytes, ops, bound_us and bound_by ("bytes" or "operations", i.e.
-    FP32)."""
+    mask, d0 or exposure, X, alpha, alpha0, log_phi, sigma_raw0, and the
+    float64 delta form's sp_d0, sig_neg_d0 and y_sp0; value, dalpha,
+    dlog_phi), scratch not counted; the float64 forms' operands are 8 bytes.
+    Operations: _ops_per_point along the branches in `shares`
+    (DEFAULT_SHARES where not given), each term as often as the function
+    needs it (per point, per (b, g) or per (s, g)), not as often as a launch
+    layout happens to compute it; FP32, or FP64 for the float64 forms, over
+    the card's peak for that type. Returns a dict with bytes, ops, bound_us
+    and bound_by ("bytes" or "operations")."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}")
     sh = dict(DEFAULT_SHARES, **(shares or {}))
-    baseline = name in ("nb_glm_delta", "nb_glm_fused")
+    baseline = name in ("nb_glm_delta", "nb_glm_fused", "nb_glm_delta_f64")
     grads = want_grads and name != "nb_glm_stable_fwd"
-    n = 4 * (2 * S * G + S * C + B * C * G + B * G)  # counts, mask, X, alpha, log_phi
-    n += 4 * (S * G + C * G + G) if baseline else 4 * S  # d0, alpha0, sigma_raw0 | exposure
-    n += 8 * B + 4 * (B * C * G + B * G) * grads  # value (f64), dalpha, dlog_phi
+    e = 8 if name in F64_FORMS else 4  # bytes of a floating-point operand
+    n = 4 * S * G + e * (S * G + S * C + B * C * G + B * G)  # counts, mask, X, alpha, log_phi
+    if name == "nb_glm_delta_f64":
+        n += e * 3 * S * G  # sp_d0, sig_neg_d0, y_sp0
+    n += e * (S * G + C * G + G) if baseline else e * S  # d0, alpha0, sigma_raw0 | exposure
+    n += 8 * B + e * (B * C * G + B * G) * grads  # value (f64), dalpha, dlog_phi
     per_point, per_gene, per_datum = _ops_per_point(name, C, grads, sh)
     ops = B * S * G * per_point + B * G * per_gene + S * G * per_datum
-    t_bytes, t_ops = n / HBM_BYTES_PER_S * 1e6, ops / FP32_OPS_PER_S * 1e6
+    peak = FP64_OPS_PER_S if name in F64_FORMS else FP32_OPS_PER_S
+    t_bytes, t_ops = n / HBM_BYTES_PER_S * 1e6, ops / peak * 1e6
     return {"bytes": n, "ops": ops, "bound_us": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -217,25 +247,30 @@ def _check(name, t, dev, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_common(X, counts, mask, alpha, log_phi, **extra):
-    """Check the shared inputs (and `extra` per-sample/per-gene ones);
-    returns (device, B, S, C, G)."""
+def _check_common(X, counts, mask, alpha, log_phi, float64_ok=False, **extra):
+    """Check the shared inputs (and `extra` per-sample/per-gene ones): all
+    float32, or with `float64_ok` all float64 when alpha is; returns
+    (device, B, S, C, G). The dtypes and shapes are checked before the
+    device, so a CPU tensor shows them too."""
     dev = alpha.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernels need CUDA tensors, got {dev}")
     B, C, G = alpha.shape
     S = X.shape[0]
     if not 1 <= C <= MAX_C:
         raise ValueError(f"design has {C} columns; the kernels take 1..{MAX_C}")
-    f32 = torch.float32
-    _check("X", X, dev, f32, (S, C))
+    ft = torch.float64 if float64_ok and alpha.dtype == torch.float64 else torch.float32
+    _check("X", X, dev, ft, (S, C))
     _check("counts", counts, dev, torch.int32, (S, G))
-    _check("mask", mask, dev, f32, (S, G))
-    _check("alpha", alpha, dev, f32, (B, C, G))
-    _check("log_phi", log_phi, dev, f32, (B, G))
-    shapes = {"exposure": (S,), "d0": (S, G), "alpha0": (C, G), "sigma_raw0": (G,)}
+    _check("mask", mask, dev, ft, (S, G))
+    _check("alpha", alpha, dev, ft, (B, C, G))
+    _check("log_phi", log_phi, dev, ft, (B, G))
+    shapes = {"exposure": (S,), "d0": (S, G), "alpha0": (C, G), "sigma_raw0": (G,),
+              "sp_d0": (S, G), "sig_neg_d0": (S, G), "y_sp0": (S, G)}
     for name, t in extra.items():
-        _check(name, t, dev, f32, shapes[name])
+        if t is None:
+            raise ValueError(f"{name} is missing")
+        _check(name, t, dev, ft, shapes[name])
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {dev}")
     return dev, B, S, C, G
 
 
@@ -283,6 +318,8 @@ def layout(name, B, S, C, G, want_grads=True):
     515)), the sample lanes SY filling a block of 256 threads; where no T
     does (a small call), as many sample lanes as S uses, up to 64, and the
     tile that fills the block."""
+    if name in F64_FORMS:  # nb_glm_fast64.cu: the row layout only
+        return _row(B, S, G)
     if name not in _CARVING:
         raise ValueError(f"no launch layout for kernel {name!r}")
     stable = name in ("nb_glm_stable_fwd", "nb_glm_stable_bwd")
@@ -332,16 +369,16 @@ def _ticket(dev, stream):
     return _TICKETS[key]
 
 
-def _one_launch_outputs(name, dev, B, S, C, G, want_grads):
+def _one_launch_outputs(name, dev, B, S, C, G, want_grads, grad_dtype=torch.float32):
     """(layout, value, dalpha, dlog_phi, partial, ticket) of one call:
-    the outputs, the [B, n_tiles] double scratch and the stream's ticket."""
+    the outputs (gradients in `grad_dtype`), the [B, n_tiles] double scratch
+    and the stream's ticket."""
     lay = layout(name, B, S, C, G, want_grads)
-    f32 = torch.float32
     value = torch.empty((B,), dtype=torch.float64, device=dev)
     dalpha = dlog_phi = None
     if want_grads:
-        dalpha = torch.empty((B, C, G), dtype=f32, device=dev)
-        dlog_phi = torch.empty((B, G), dtype=f32, device=dev)
+        dalpha = torch.empty((B, C, G), dtype=grad_dtype, device=dev)
+        dlog_phi = torch.empty((B, G), dtype=grad_dtype, device=dev)
     partial = torch.empty((B, lay["grid"][0]), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         ticket = _ticket(dev, torch.cuda.current_stream(dev).cuda_stream)
@@ -353,15 +390,30 @@ def _layout_args(lay):
 
 
 def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0,
-                 want_grads, delta):
+                 want_grads, delta, tables=(None, None, None)):
+    """K1 or K2, or in float64 their float64 form; `tables` = (sp_d0,
+    sig_neg_d0, y_sp0), which the float64 delta form reads."""
+    f64 = alpha.dtype == torch.float64
     if delta:
-        dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi,
-                                        d0=d0, alpha0=alpha0, sigma_raw0=sigma_raw0)
+        extra = dict(d0=d0, alpha0=alpha0, sigma_raw0=sigma_raw0)
+        if f64:
+            extra.update(zip(("sp_d0", "sig_neg_d0", "y_sp0"), tables))
     else:
-        dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, exposure=exposure)
-    name = "nb_glm_delta" if delta else "nb_glm_plain"
+        extra = dict(exposure=exposure)
+    dev, B, S, C, G = _check_common(X, counts, mask, alpha, log_phi, float64_ok=True, **extra)
+    name = ("nb_glm_delta" if delta else "nb_glm_plain") + ("_f64" if f64 else "")
     lay, value, dalpha, dlog_phi, partial, ticket = _one_launch_outputs(
-        name, dev, B, S, C, G, want_grads)
+        name, dev, B, S, C, G, want_grads, alpha.dtype)
+    if f64:
+        sp_d0, sig_neg_d0, y_sp0 = tables
+        _run("nb_glm_fast64_launch", name, dev, (
+            X.data_ptr(), _ptr(exposure), counts.data_ptr(), mask.data_ptr(), _ptr(d0),
+            _ptr(sp_d0), _ptr(sig_neg_d0), _ptr(y_sp0), alpha.data_ptr(), _ptr(alpha0),
+            log_phi.data_ptr(), _ptr(sigma_raw0), partial.data_ptr(), value.data_ptr(),
+            _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(), B, S, C, G,
+            int(bool(want_grads)), int(bool(delta)),
+        ))
+        return (value, dalpha, dlog_phi) if want_grads else value
     _run("nb_glm_fast_launch", name, dev, (
         X.data_ptr(), _ptr(exposure), counts.data_ptr(), mask.data_ptr(), _ptr(d0),
         alpha.data_ptr(), _ptr(alpha0), log_phi.data_ptr(), _ptr(sigma_raw0),
@@ -371,19 +423,25 @@ def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_ra
     return (value, dalpha, dlog_phi) if want_grads else value
 
 
-def launch_delta(X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, want_grads):
-    """K1: value[B], or (value, dalpha[B,C,G], dlog_phi[B,G]).
+def launch_delta(X, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0, want_grads, *,
+                 sp_d0=None, sig_neg_d0=None, y_sp0=None):
+    """K1: value[B] (float64), or (value, dalpha[B,C,G], dlog_phi[B,G]).
 
-    All inputs float32 and contiguous on one CUDA device, counts int32:
-    X[S,C], counts/mask/d0 [S,G], alpha[B,C,G], alpha0[C,G], log_phi[B,G],
-    sigma_raw0[G].
+    All inputs contiguous on one CUDA device, counts int32: X[S,C],
+    counts/mask/d0 [S,G], alpha[B,C,G], alpha0[C,G], log_phi[B,G],
+    sigma_raw0[G]. float32 inputs launch K1 (which rebuilds softplus(d0) and
+    sigmoid(-d0) from d0; sp_d0, sig_neg_d0 and y_sp0 are not read);
+    float64 inputs launch its float64 form, which reads the [S,G] tables
+    sp_d0, sig_neg_d0 and y_sp0 too, and returns float64 gradients. Mixed
+    dtypes raise TypeError.
     """
     return _launch_fast(X, None, counts, mask, d0, alpha, alpha0, log_phi, sigma_raw0,
-                        want_grads, delta=True)
+                        want_grads, delta=True, tables=(sp_d0, sig_neg_d0, y_sp0))
 
 
 def launch_plain(X, exposure, counts, mask, alpha, log_phi, want_grads):
-    """K2: as launch_delta, with exposure[S] in place of the baseline."""
+    """K2: as launch_delta, with exposure[S] in place of the baseline
+    (float64 inputs: its float64 form)."""
     return _launch_fast(X, exposure, counts, mask, None, alpha, None, log_phi, None,
                         want_grads, delta=False)
 
@@ -438,7 +496,8 @@ def _fast(data, alpha, log_phi, want_grads):
     if data.d0 is not None:
         if _on(alpha.device):
             return launch_delta(data.X, data.counts, data.like_mask, data.d0, alpha.contiguous(),
-                                data.alpha0, log_phi.contiguous(), data.sigma_raw0, want_grads)
+                                data.alpha0, log_phi.contiguous(), data.sigma_raw0, want_grads,
+                                sp_d0=data.sp_d0, sig_neg_d0=data.sig_neg_d0, y_sp0=data.y_sp0)
         return nb_fast.glm_delta(
             data.X, data.counts, data.like_mask, data.alpha0, data.sigma_raw0, data.d0,
             data.sp_d0, data.sig_neg_d0, data.y_sp0, alpha, log_phi, want_grads,
@@ -504,8 +563,9 @@ def _wants_grad(alpha, log_phi):
 def nb_glm_likelihood_fast(data, alpha, log_phi):
     """Masked likelihood on the hoisted math, value[B]: K1 (delta form) when
     `data` carries baseline constants (nb_model.with_baseline), K2 (stable
-    plain form) when it does not. alpha[B, C, G] and log_phi[B, G] lie on
-    the data's device."""
+    plain form) when it does not; in float64, their float64 forms.
+    alpha[B, C, G] and log_phi[B, G] lie on the data's device, in its
+    dtype."""
     if _wants_grad(alpha, log_phi):
         return _GradsInForward.apply(alpha, log_phi, data, _fast)
     return _fast(data, alpha, log_phi, want_grads=False)

@@ -52,7 +52,7 @@ from ppcseq_tpu_torch.parallel import sharding
 from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
 from ppcseq_tpu_torch.utils import checkpoint as ckpt
 from ppcseq_tpu_torch.utils import constants as K
-from ppcseq_tpu_torch.utils.device import resolve_device, working_dtype
+from ppcseq_tpu_torch.utils.device import resolve_device
 from ppcseq_tpu_torch.utils.log import breadcrumb, timed
 
 
@@ -517,7 +517,8 @@ def identify_outliers(
     returns the same nested DataFrame: one row per checked transcript with
     [transcript, sample_wise_data, ppc_samples_failed,
     tot_deleterious_outliers*]. The fits and the CI simulation run on
-    `device` (float32 on CUDA; `dtype` is honoured on the CPU).
+    `device` in `dtype`, on the card as on the CPU (float64 runs the
+    likelihood's float64 forms there).
     approximate_posterior_inference=
     False runs the jittered-HMC sampler (`mcmc_sampler="hmc"`, 128 chains;
     ChEES trajectory adaptation with `hmc_adapt_trajectory=True`) or NUTS
@@ -537,7 +538,6 @@ def identify_outliers(
         _check_sampler(mcmc_sampler)
     device = resolve_device(device)
     _mesh_axes(mesh, device)
-    dtype = working_dtype(device, dtype)
     if cores is None:
         cores = os.cpu_count() or 1
     if tol_rel_obj != 0.01:

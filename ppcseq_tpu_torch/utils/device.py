@@ -1,8 +1,9 @@
-"""Device and dtype policy, and an environment probe.
+"""Device policy, and an environment probe.
 
 Policy: every array the model computes on lives on one explicit
-`torch.device`. On CUDA the working dtype is float32 (the likelihood
-kernel is float32-only); on the CPU the caller's dtype is honoured, so the
+`torch.device`, in the dtype the caller asked for, on the card as on the
+CPU: float32 runs the likelihood kernels K1/K2, float64 their float64 forms
+(ops/nb_kernel.py), and the CPU runs their plain versions in either, so the
 parity tests can run the whole port in float64 against the JAX package.
 """
 
@@ -21,11 +22,6 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is False")
     return dev
-
-
-def working_dtype(device, dtype=torch.float32) -> torch.dtype:
-    """float32 on CUDA whatever was asked; the requested dtype on CPU."""
-    return torch.float32 if torch.device(device).type == "cuda" else dtype
 
 
 def _version(module: str) -> str:

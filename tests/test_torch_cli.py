@@ -128,12 +128,16 @@ def test_module_entry_point_help():
 
 
 def test_console_script_and_package_data_cover_the_kernels():
-    """pyproject.toml names the port's console script, and its package data
-    match every kernel source and every header a source includes with
-    quotes (ops/_build.py hashes and compiles them), and the native host
-    runtime's source (_native.py builds it at first use)."""
+    """pyproject.toml names the port's console script; its `torch` extra
+    names what the port imports beyond the JAX package's dependencies
+    (pyarrow for parquet: data/datasets.py, cli.py, utils/checkpoint.py;
+    scipy: utils/sbc.py); its package data match every kernel source (the
+    float64 form's nb_glm_fast64.cu among them) and every header a source
+    includes with quotes (ops/_build.py hashes and compiles them), and the
+    native host runtime's source (_native.py builds it at first use)."""
     meta = tomllib.loads((REPO / "pyproject.toml").read_text())
     assert meta["project"]["scripts"]["ppcseq-tpu-torch"] == "ppcseq_tpu_torch.cli:main"
+    assert {"torch", "pyarrow", "scipy"} <= set(meta["project"]["optional-dependencies"]["torch"])
     globs = meta["tool"]["setuptools"]["package-data"]["ppcseq_tpu_torch"]
     csrc = REPO / "ppcseq_tpu_torch" / "csrc"
     needed, todo = set(), sorted(csrc.glob("*.cu"))
@@ -145,7 +149,7 @@ def test_console_script_and_package_data_cover_the_kernels():
         needed.add(rel)
         for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
             todo.append(path.parent / inc)
-    assert {"csrc/nb_common.cuh", "csrc/nb_tile.cuh"} <= needed
+    assert {"csrc/nb_common.cuh", "csrc/nb_tile.cuh", "csrc/nb_glm_fast64.cu"} <= needed
     needed.add(_native.SOURCE.relative_to(csrc.parent).as_posix())
     for rel in sorted(needed):
         assert (csrc.parent / rel).exists(), rel

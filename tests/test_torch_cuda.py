@@ -498,6 +498,92 @@ def test_k5_one_kernel_per_gradient_call(B):
         assert nb_kernel.LAUNCHES["nb_glm_stable_bwd"] == 0
 
 
+def _launch64(d, alpha, log_phi, kernel, want_grads=True):
+    """The float64 form's output (d, alpha, log_phi in float64)."""
+    if kernel == "nb_glm_delta_f64":
+        return nb_kernel.launch_delta(d.X, d.counts, d.like_mask, d.d0, alpha, d.alpha0, log_phi,
+                                      d.sigma_raw0, want_grads, sp_d0=d.sp_d0,
+                                      sig_neg_d0=d.sig_neg_d0, y_sp0=d.y_sp0)
+    return nb_kernel.launch_plain(d.X, d.exposure_rate, d.counts, d.like_mask, alpha, log_phi,
+                                  want_grads)
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta_f64", "nb_glm_plain_f64"])
+def test_float64_form_matches_plain_version(cuda_case, kernel):
+    """The float64 forms of K1/K2 against their plain versions in float64
+    (nb_fast.glm_delta / glm_plain), at chip_smoke.py phase dtype's limits:
+    value rtol 1e-10, gradients |d|/(1+|g|) < 1e-10 (the same operations in
+    double; only the summation order differs). One launch each, of that
+    form only; float64 gradients; exactly zero gradients for the masked
+    gene; the value-only launch gives the same value."""
+    data, alpha, log_phi = cuda_case
+    d, a, p = _f64(data), alpha.double(), log_phi.double()
+    nb_kernel.reset_launches()
+    kern = _launch64(d, a, p, kernel)
+    value_only = _launch64(d, a, p, kernel, want_grads=False)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {kernel: 2}
+    plain = _plain(d, a, p, kernel[:-4])
+    assert all(t.dtype == torch.float64 for t in kern)
+    np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=1e-10)
+    assert all(_scaled(k, w) < 1e-10 for k, w in zip(kern[1:], plain[1:]))
+    assert torch.all(kern[1][:, :, 11] == 0) and torch.all(kern[2][:, 11] == 0)
+    assert torch.equal(value_only, kern[0])
+
+
+def test_float64_density_and_three_gene_case_on_the_card():
+    """A float64 flat_logp(dims) runs on the card (the float64 form of K1
+    with a baseline, of K2 without; one launch per value and gradient) and
+    matches the same density on the CPU, where the route runs the plain
+    versions: value rtol 1e-10, gradient |d|/(1+|g|) < 1e-10.
+    identify_outliers(dtype=torch.float64) on the reference's 3-gene case
+    gives (0, 1, 0) on both CI paths, launching the float64 form of K1 and
+    no other kernel."""
+    _needs_card()
+    from ppcseq_tpu_torch import identify_outliers, load_counts
+
+    rng = np.random.default_rng(1)
+    S, G = 8, 24
+    counts = rng.poisson(np.exp(rng.normal(4.0, 1.0, size=(1, G))), size=(S, G))
+    X = np.column_stack([np.ones(S), (np.arange(S) >= S // 2).astype(float)])
+    exposure = rng.normal(0.0, 0.1, S)
+    noise = rng.normal(size=(3, 6 + 2 * G + 4))
+    for baseline, kernel in ((True, "nb_glm_delta_f64"), (False, "nb_glm_plain_f64")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            data, dims = nb_model.prepare_data(counts, X, exposure, 4, device=dev,
+                                               dtype=torch.float64)
+            if baseline:
+                data = nb_model.with_baseline(data, dims)
+            f = nb_model.flat_logp(dims)
+            theta = torch.as_tensor(nb_model.smart_init(data, dims)[None] + 0.05 * noise,
+                                    device=dev).requires_grad_(True)
+            nb_kernel.reset_launches()
+            lp = f(theta, data)
+            (g,) = torch.autograd.grad(lp.sum(), theta)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {kernel: 1}
+            out[dev] = (lp.detach().cpu(), g.cpu())
+        np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-10)
+        assert out["cuda"][1].dtype == torch.float64
+        assert _scaled(out["cuda"][1], out["cpu"][1]) < 1e-10
+    table = load_counts()
+    three = table.assign(is_significant=table.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+    for approx in (True, False):
+        nb_kernel.reset_launches()
+        res = identify_outliers(three, formula="~ Label", sample="sample", transcript="symbol",
+                                abundance="value", significance="PValue",
+                                do_check="is_significant", percent_false_positive_genes=1,
+                                how_many_negative_controls=50, seed=42,
+                                approximate_posterior_analysis=approx, device="cuda",
+                                dtype=torch.float64)
+        torch.cuda.synchronize()
+        assert dict(zip(res.symbol, res.tot_deleterious_outliers)) == {
+            "SLC16A12": 0, "CYP1A1": 1, "ART3": 0}
+        assert {k for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta_f64"}
+
+
 def test_kernel_refuses_wrong_dtype(cuda_case):
     data, alpha, log_phi = cuda_case
     with pytest.raises(TypeError, match="dtype"):

@@ -438,7 +438,8 @@ def test_launch_counts_are_per_kernel_and_untouched_on_cpu():
                   nb_kernel.nb_glm_likelihood_fused):
         entry(tdata, a, p)
     assert set(nb_kernel.LAUNCHES) == {"nb_glm_delta", "nb_glm_plain", "nb_glm_fused",
-                                       "nb_glm_stable_fwd", "nb_glm_stable_bwd"}
+                                       "nb_glm_stable_fwd", "nb_glm_stable_bwd",
+                                       "nb_glm_delta_f64", "nb_glm_plain_f64"}
     assert all(v == 0 for v in nb_kernel.LAUNCHES.values())
 
 

@@ -19,7 +19,7 @@ from ppcseq_tpu_torch import identify_outliers, load_counts
 from ppcseq_tpu_torch.data import ingest
 from ppcseq_tpu_torch.formula.design import create_design_matrix
 from ppcseq_tpu_torch.norm.tmm import sample_scaling
-from ppcseq_tpu_torch.utils.device import resolve_device, working_dtype
+from ppcseq_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
 
@@ -106,8 +106,6 @@ def test_empty_do_check_warns(sig_counts):
 
 
 def test_device_policy():
-    assert working_dtype("cpu", torch.float64) == torch.float64
-    assert working_dtype("cuda", torch.float64) == torch.float32
     assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
