@@ -131,12 +131,15 @@ so the exit code is non-zero):
              version (nb_fast in float64 on the card) at A (1, 21, 515), H
              (128, 21, 515), Z (8, 100, 50000) and V (1, 100, 50000) with
              gradients and W (100, 100, 50000) value-only: value rtol 1e-10,
-             gradients |d|/(1+|g|) < 1e-10; rows as phase kernel's, the
-             bound on the card's FP64 peak. (b) The 3-gene case at float64
-             on both VB CI paths: (0, 1, 0), the float64 form of K1 the only
-             kernel launched. (c) The 15-gene README configuration in
-             float32 and in float64: both walls and the (transcript,
-             sample) calls that differ; CYP1A1 and LYZ called in both. (d)
+             gradients |d|/(1+|g|) < 1e-10, a second call bitwise equal,
+             the value-only launch's value that of the gradient launch;
+             rows as phase kernel's with the launch layout (T, BY, SY, SC,
+             n_chunks), the bound on the card's FP64 peak. (b) The 3-gene
+             case at float64 on both VB CI paths: (0, 1, 0), the float64
+             form of K1 the only kernel launched. (c) The 15-gene README
+             configuration in float32 and in float64: both walls and the
+             (transcript, sample) calls that differ; CYP1A1 and LYZ called
+             in both. (d)
              Phase cli's 50k x 100 table at float64 once, with the command
              line's arguments (in the cli child, after phase cli): wall,
              peak device memory, launches, injected cells flagged (at least
@@ -239,6 +242,36 @@ def _device_us(fn, calls: int, sessions: int = 2):
     torch.cuda.synchronize()
     n_cuda = (sum(nb_kernel.LAUNCHES.values()) - launched) / calls
     return a.elapsed_time(b) * 1e3 / calls, n_cuda, None, "cuda events"
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_F64_KERNEL = re.compile(r"(tile|row)_kernelIN\w+Fast64ILb([01])EEELi(\d)ELb([01])E")
+
+
+def _f64_registers(log, C=2):
+    """{"<tile|row> <delta|plain> <grads|value>": [registers, spill store
+    bytes]} of the float64 forms' instantiations at C design columns, from
+    nvcc -Xptxas -v's log of nb_glm_fast64.cu."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            k = _F64_KERNEL.search(m.group(1))
+            cur = None
+            if k and int(k.group(3)) == C:
+                cur = (f"{k.group(1)} {'delta' if k.group(2) == '1' else 'plain'} "
+                       f"{'grads' if k.group(4) == '1' else 'value'}")
+                out[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[cur][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return dict(sorted(out.items()))
 
 
 def _np(t):
@@ -1223,8 +1256,10 @@ def phase_dtype_kernels(counts_df, device):
     50000) with gradients and W (100, 100, 50000) value-only: value rtol
     1e-10, gradients |d|/(1+|g|) < 1e-10, one launch of the form and no
     other kernel per call, float64 outputs, exactly zero gradients for the
-    masked gene. Rows as phase kernel's, the bound on the card's FP64 peak.
-    Returns the rows."""
+    masked gene, a second call equal bit for bit and, with gradients, the
+    value-only launch's value equal to the gradient launch's. Rows as phase
+    kernel's, with the launch layout (T, BY, SY, SC, n_chunks), the bound on
+    the card's FP64 peak. Returns the rows."""
     import torch
 
     from ppcseq_tpu_torch.ops import nb_kernel
@@ -1243,6 +1278,7 @@ def phase_dtype_kernels(counts_df, device):
         C = data.X.shape[1]
         shares = nb_kernel.branch_shares(data, alpha, log_phi)
         calls = _calls(data, alpha, log_phi, grads)[0]
+        value_calls = _calls(data, alpha, log_phi, grads=False)[0]
         for name in nb_kernel.F64_FORMS:
             kern_fn, plain_fn = calls[name[:-len("_f64")]]
             torch.cuda.synchronize()
@@ -1250,6 +1286,10 @@ def phase_dtype_kernels(counts_df, device):
             kern = kern_fn()
             torch.cuda.synchronize()
             launched = {k: v for k, v in nb_kernel.LAUNCHES.items() if v}
+            repeat = all(torch.equal(a, b) for a, b in zip(kern, kern_fn()))
+            # the value-only instantiation, in the same lanes
+            value_only_equal = not grads or torch.equal(
+                value_calls[name[:-len("_f64")]][0]()[0], kern[0])
             plain = plain_fn()
             val_rel, grad_err, mabs = _errors(kern, plain)
             zero = len(kern) == 1 or bool((kern[1][:, :, g_m] == 0).all()
@@ -1257,14 +1297,17 @@ def phase_dtype_kernels(counts_df, device):
             finite = all(bool(torch.isfinite(t).all()) for t in kern)
             f64 = all(t.dtype == torch.float64 for t in kern)
             ok = (val_rel < 1e-10 and grad_err < 1e-10 and zero and finite and f64
-                  and launched == {name: 1})
+                  and launched == {name: 1} and repeat and value_only_equal)
             t_k = _time_ms(kern_fn, reps=20)
             t_p = _time_ms(plain_fn, reps=3, warmup=1) if G > 1000 else _time_ms(plain_fn)
             dev_us, n_cuda, n_records, dev_source = _device_us(kern_fn, 20 if G > 1000 else 200)
             w = nb_kernel.work(name, B, S, C, G, want_grads=grads, shares=shares)
-            row = dict(kernel=name, shape=shape, B=B, S=S, G=G, grads=grads,
+            lay = {k: v for k, v in nb_kernel.layout(name, B, S, C, G, grads).items()
+                   if k in ("T", "BY", "SY", "SC", "n_chunks")}
+            row = dict(kernel=name, shape=shape, B=B, S=S, G=G, grads=grads, layout=lay,
                        value_rel_err=val_rel, grad_err=grad_err, max_abs_err=mabs,
                        launched=launched, float64_outputs=f64, masked_gene_zero_grad=zero,
+                       bitwise_repeat=repeat, value_only_equal=value_only_equal,
                        finite=finite, device_us=dev_us, device_us_source=dev_source,
                        cuda_kernels_per_call=n_cuda, kernel_records_per_call=n_records,
                        call_ms=t_k, plain_ms=t_p, bytes=w["bytes"], ops=w["ops"],
@@ -1275,7 +1318,7 @@ def phase_dtype_kernels(counts_df, device):
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at {shape}: {row}")
             rows.append(row)
-        del data, alpha, log_phi, calls
+        del data, alpha, log_phi, calls, value_calls
         torch.cuda.empty_cache()
     return rows
 
@@ -1838,6 +1881,9 @@ def main() -> None:
         print(f"phase build {source}: cached={info['cached']} kernels={len(regs)} "
               f"registers={min(regs, default=0)}-{max(regs, default=0)} "
               f"spill_store_bytes={spills}", flush=True)
+    f64_regs = _f64_registers(_build.BUILD_LOG["nb_glm_fast64.cu"]["log"])
+    if f64_regs:  # [registers, spill store bytes] per instantiation at C = 2
+        print("phase build nb_glm_fast64.cu at C = 2: " + json.dumps(f64_regs), flush=True)
 
     phase_host()
     counts_df = load_counts()

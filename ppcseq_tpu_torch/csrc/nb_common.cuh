@@ -26,7 +26,16 @@ constexpr int ROW_THREADS = 128;  // row layouts: one thread per (b, g)
 
 // Row stride of a staged [rows][T] plane in the tiled layouts. A warp is 4
 // genes x 8 lanes; when the lanes are on 8 different samples, rows r..r+7 of
-// the 4 genes then fall in 32 different banks.
+// the 4 genes then fall in 32 different banks. With Tp = 4 o, o odd, row r
+// starts at bank 4 (o r mod 8), a permutation of 0, 4, ..., 28 over r..r+7.
+// The same stride serves 8-byte words (the float64 forms): a warp's 32
+// doubles are 256 bytes, at least two wavefronts of 128, each half-warp (4
+// genes x 4 lanes, so at most 4 samples r..r+3) one of them. Its 16 doubles
+// fall in 16 different bank pairs when the rows start at distinct multiples
+// of 4 doubles mod 16: 4 (o r mod 4), again a permutation for o odd, so a
+// half-warp is one wavefront and the warp two, the least. (Tp = 8 mod 16
+// would put rows r and r+2 on one bank pair; Tp = 0 mod 16 all four.) The
+// int32 counts plane keeps 4-byte words and the 4-byte rule.
 __host__ __device__ constexpr int padded(int T) { return (T / 4) % 2 ? T : T + 4; }
 
 // lgamma(y+1) for y = 0..7
@@ -245,12 +254,16 @@ __device__ __forceinline__ void grad_point(const GradRow& r, const Part1Row& p,
   acc_dlp += m * dlogphi;
 }
 
-// 4-byte global -> shared copy that does not wait (cp.async, sm_80+); the
-// issuing thread waits with cp_async_wait_all (which commits its copies
-// first), then a barrier publishes them.
+// 4-byte and 8-byte global -> shared copies that do not wait (cp.async,
+// sm_80+); the issuing thread waits with cp_async_wait_all (which commits
+// its copies first), then a barrier publishes them.
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");

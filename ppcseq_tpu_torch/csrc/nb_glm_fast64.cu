@@ -28,29 +28,55 @@
 // What bounds it on the H100: FP64 instruction issue. The card has no
 // special-function unit for double, so each log and exp is a software
 // sequence of ~20 FP64 instructions and each divide ~10
-// (ops/nb_kernel.py:work counts them so), ~30 per point in all, against 44
-// bytes of [S, G] input per point with a baseline: operations, not bytes,
-// at every shape of the main path.
+// (ops/nb_kernel.py:work counts them so), ~300 per point in all, on the
+// FMA pipe at half the FP32 rate. Tensor cores do not apply: X alpha is
+// C <= MAX_C multiply-adds per point, the rest is log/exp/divide sequences.
+// Against that, 44 bytes of [S, G] input per point with a baseline (12
+// without): operations, not bytes, by work()'s count at every shape. What
+// held the one-thread-per-(b, g) kernel of before back: (1) each of the B
+// rows of blocks read the [S, G] tables from device memory again (up to
+// B x 220 MB at 50k x 100; the 50 MB L2 holds about two rows of blocks),
+// (2) log(y + 1), 1/(y + 1) and 1 - sig_neg_d0 were computed per (b, s, g)
+// where they depend on (s, g) alone, (3) at small B a few blocks, each
+// thread building its (b, g) row (8 logs, 7 divides) and walking all S
+// points in one dependent chain. (Measured on the H100, PERF.md: (1) was
+// hidden behind the FP64 instruction rate even at (100, 100, 50000), which
+// the tile moved by ~2%; (3) held the small calls at ~5x their time now.)
 //
-// Layout, kept simple: one thread per (b, g), blocks of ROW_THREADS genes of
-// one b, grid (ceil(G / ROW_THREADS), B), each thread walking the S samples
-// straight from global memory (reads of the [S, G] arrays are coalesced
-// along g). Each block sums its genes' values in double in a fixed order into
-// partial[b, blockIdx.x]; the last block to finish sums the partials in a
-// fixed order (nb_common.cuh's last_block_sums_partials), so the outputs are
-// bitwise reproducible and one kernel runs per call. GRADS = false is the
-// value-only instantiation.
+// The design: the float64 forms are forms of csrc/nb_tile.cuh (Fast64<DELTA>,
+// Real = double), in the launch layout that ops/nb_kernel.py:layout chose
+// from an H100 sweep (bench_kernels.py --sweep). Tiled, a block stages its
+// [SC, T] chunk of counts, mask and d0, sp_d0, sig_neg_d0, y_sp0 (or the
+// exposure) and X in shared memory with 8-byte cp.async, once for its BY
+// b-rows: ceil(B / BY) passes over the tables instead of B. The terms of a
+// point that depend on (s, g) alone (lgamma(y + 1) for y <= 7, else
+// log(y + 1) and 1/(y + 1); the delta form's 1 - sig_neg_d0) are computed
+// once per staged point (hoist), not once per (b, point). The (b, g) row's
+// 8 logs log(phi + k) and 8 ratios phi / (phi + k) are spread over the SY
+// sample lanes, which also share the samples; the lanes' partials are summed
+// in shared memory in a fixed order. The row layout (one thread per (b, g),
+// the kernel of before) is built beside it for the sweep and the card
+// tests; layout() does not take it (no faster at any main-path shape but
+// the value-only (100, 21, 515), PERF.md). Either way the blocks' double
+// partials are summed in a fixed order by the last block (nb_common.cuh's
+// last_block_sums_partials): bitwise reproducible, one kernel per call.
+// GRADS = false is the value-only instantiation; a point's value is
+// computed by the same operations in both, and layout() gives both the same
+// lanes, so their values agree bit for bit. Registers: a (b, g) row holds
+// ~30 doubles; a gene's phi takes one side of the y > 7 branch, so the row
+// keeps that side's constants only (GeneRow::br), which brought the tiled
+// gradient instantiation at C = 2 under the 128 registers at which ptxas
+// holds two blocks of 256 threads per SM, without spills.
 //
 // Build without --use_fast_math and with --fmad=false (ops/_build.py), so
 // every product and sum rounds once, as in the plain torch version.
 
-#include "nb_common.cuh"
+#include "nb_tile.cuh"
 
 namespace {
 
-// Only ROW_THREADS, last_block_sums_partials and MAX_C come from nb_common.cuh:
-// its float helpers (log1p01, log1p_wide, ...) have double namesakes here.
-using nbk::ROW_THREADS;
+// Only the layouts (nb_tile.cuh) and MAX_C come from nbk: nb_common.cuh's
+// float helpers (log1p01, log1p_wide, ...) have double namesakes here.
 
 constexpr double CAP = 80.0;                      // nb_fast.LOG_PHI_CAP
 constexpr double HALF_LOG_2PI_D = 0.9189385332046727;
@@ -103,32 +129,40 @@ __device__ __forceinline__ double lgamma_1p_small(double yf) {
 }
 
 // The per-(b, g) tables of nb_fast._gene_tables, and the gene's alpha step
-// da (DELTA: alpha - alpha0; else alpha)
+// da (DELTA: alpha - alpha0; else alpha). A gene's phi takes one side of
+// the y > 7 branch at every point, so `br` holds that side's constants only
+// (fewer registers): phi >= 8 (there phi_b = max(phi, 8) is phi)
+// BR_INV_PHI_B, BR_INV_PHI_B3, BR_B_CONST, BR_LOG_PHI_B; phi < 8
+// BR_LGAM_SMALL, BR_PSI8, BR_SHIFT_C.
+enum { BR_INV_PHI_B, BR_INV_PHI_B3, BR_B_CONST, BR_LOG_PHI_B };
+enum { BR_LGAM_SMALL, BR_PSI8, BR_SHIFT_C };
 template <int C>
 struct GeneRow {
-  double lpc, phi, lgam_small, psi8, shift_c, log_phi_b, phi_b, inv_phi_b, inv_phi_b3, b_const,
-      d_b, delta_log_phi;
+  double lpc, phi, d_b, delta_log_phi;
   bool below_cap;
-  double cum_log[7], cum_frac[7], da[C];
+  double br[4], cum_log[7], cum_frac[7], da[C];
 };
 
-template <int C, bool DELTA>
-__device__ __forceinline__ void gene_row(GeneRow<C>& r, double lp_raw, double sr0) {
+// Builds the row from lp_raw = log_phi[b, g]; log_k(k) = log(phi + k) for
+// k = 0..7 and frac_k(k) = phi / (phi + k) for k = 1..7, wherever the caller
+// computed them (phi + 0 is phi); the running sums keep the plain version's
+// order.
+template <int C, bool GRADS, bool DELTA, class LogK, class FracK>
+__device__ __forceinline__ void gene_row(GeneRow<C>& r, double lp_raw, double sr0, LogK log_k,
+                                         FracK frac_k) {
   r.lpc = clamp_max(lp_raw, CAP);
   r.phi = exp(r.lpc);
   const double phi = r.phi;
-  double acc_l = log(phi), acc_f = 1.0;
+  double acc_l = log_k(0), acc_f = 1.0;
   r.cum_log[0] = acc_l;
   r.cum_frac[0] = acc_f;
 #pragma unroll
   for (int k = 1; k < 7; ++k) {
-    acc_l = acc_l + log(phi + (double)k);
-    acc_f = acc_f + phi / (phi + (double)k);
+    acc_l = acc_l + log_k(k);
+    if (GRADS) acc_f = acc_f + frac_k(k);
     r.cum_log[k] = acc_l;
     r.cum_frac[k] = acc_f;
   }
-  const double lg7 = log(phi + 7.0);
-  const double frac7 = phi / (phi + 7.0);
   // lgamma(min(phi, 8)) by shift-by-8 Stirling
   const double xs = clamp_max(phi, 8.0) + 8.0;
   const double inv = 1.0 / xs;
@@ -136,29 +170,41 @@ __device__ __forceinline__ void gene_row(GeneRow<C>& r, double lp_raw, double sr
   const double log_xs = log(xs);
   const double stirl = (xs - 0.5) * log_xs - xs + HALF_LOG_2PI_D +
                        inv * (1.0 / 12.0 + inv2 * (-1.0 / 360.0 + inv2 * (1.0 / 1260.0)));
-  r.lgam_small = stirl - (r.cum_log[6] + lg7);
-  r.psi8 = log_xs - 0.5 * inv - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0));
-  r.shift_c = r.cum_frac[6] + frac7;
-  r.log_phi_b = clamp_min(r.lpc, LOG8_D);
-  r.phi_b = clamp_min(phi, 8.0);
-  r.inv_phi_b = 1.0 / r.phi_b;
-  r.inv_phi_b3 = r.inv_phi_b * r.inv_phi_b * r.inv_phi_b;
-  r.b_const = -0.5 * r.log_phi_b + 1.0 - HALF_LOG_2PI_D - (1.0 / 12.0) * r.inv_phi_b +
-              (1.0 / 360.0) * r.inv_phi_b3;
+  const double lgam_small = stirl - (r.cum_log[6] + log_k(7));
+  const double psi8 =
+      log_xs - 0.5 * inv - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0));
+  const double shift_c = GRADS ? r.cum_frac[6] + frac_k(7) : 0.0;
+  const double log_phi_b = clamp_min(r.lpc, LOG8_D);
+  const double phi_b = clamp_min(phi, 8.0);
+  const double inv_phi_b = 1.0 / phi_b;
+  const double inv_phi_b3 = inv_phi_b * inv_phi_b * inv_phi_b;
+  const double b_const = -0.5 * log_phi_b + 1.0 - HALF_LOG_2PI_D - (1.0 / 12.0) * inv_phi_b +
+                         (1.0 / 360.0) * inv_phi_b3;
+  const bool big = phi >= 8.0;
+  r.br[0] = big ? inv_phi_b : lgam_small;
+  r.br[1] = big ? inv_phi_b3 : psi8;
+  r.br[2] = big ? b_const : shift_c;
+  r.br[3] = log_phi_b;
   r.d_b = phi - 1.0;
   r.delta_log_phi = DELTA ? r.lpc + sr0 : 0.0;  // log_phi - log_phi0
   r.below_cap = lp_raw < CAP;
 }
 
+// The per-(s, g) terms of a point, h[NH] (Fast64::hoist):
+//   h[0] lgamma(y + 1) for y <= 7, else log(y + 1); h[1] 1/(y + 1) (y > 7);
+//   DELTA: h[2] = 1 - sig_neg_d0 (sigmoid(d0)), and the staged tables
+//   h[3] = sp_d0, h[4] = sig_neg_d0, h[5] = y_sp0
+enum { H_LGY, H_INV_Y1, H_SIG_D0, H_SP_D0, H_SIG_NEG_D0, H_Y_SP0 };
+
 // One point's value and gradient terms, added to the accumulators: the
 // plain version's operations in its order. `x` is the sample's design row,
-// `ex` its exposure (!DELTA); b0 = {d0, sp_d0, sig_neg_d0, y_sp0} at the
-// point (DELTA).
-template <int C, bool GRADS, bool DELTA>
+// `ex` its exposure (!DELTA), d0 its baseline (DELTA), h its per-(s, g)
+// terms (H_*).
+template <int C, bool GRADS, bool DELTA, int NH>
 __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double yf,
-                                          const double* x, double ex, const double (&b0)[4],
-                                          double& acc_val, double (&acc_da)[C],
-                                          double& acc_dlp) {
+                                          const double* x, double ex, double d0,
+                                          const double (&h)[NH], double& acc_val,
+                                          double (&acc_da)[C], double& acc_dlp) {
   const double lpc = r.lpc, phi = r.phi;
   // DELTA: delta_eta = X (alpha - alpha0); else eta = exposure + X alpha
   // (nb_fast._eta_small: the exposure first, then column by column)
@@ -166,7 +212,7 @@ __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double 
 #pragma unroll
   for (int c = 0; c < C; ++c) eta = eta + x[c] * r.da[c];
   const double dlo = eta - r.delta_log_phi;  // DELTA only
-  const double d = DELTA ? b0[0] + dlo : eta - lpc;
+  const double d = DELTA ? d0 + dlo : eta - lpc;
 
   // softplus pair sharing one exp (nb_fast._softplus_pair)
   const double em = exp(-fabs(d));
@@ -176,8 +222,8 @@ __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double 
 
   // phi * softplus(d) and the y term (nb_fast.delta_increment_terms)
   double phi_sp, y_term;
-  if (DELTA) {
-    const double d0 = b0[0], sp_d0 = b0[1], sig_neg_d0 = b0[2];
+  if constexpr (DELTA) {
+    const double sp_d0 = h[H_SP_D0], sig_neg_d0 = h[H_SIG_NEG_D0];
     double inc_neg;
     if (dlo > -2.0 && dlo < 8.0) {  // here clamp(dlo, -2, 8) = dlo
       const double e1 =
@@ -186,7 +232,7 @@ __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double 
                 dlo * (1.0 / 120.0 + dlo * (1.0 / 720.0 + dlo / 5040.0))))))
               : exp(dlo) - 1.0;
       const double e1_neg = -e1 / (1.0 + e1);  // expm1(-dlo)
-      const double sig_d0 = 1.0 - sig_neg_d0;
+      const double sig_d0 = h[H_SIG_D0];  // 1 - sig_neg_d0
       phi_sp = phi * (sp_d0 + log1p_wide(sig_d0 * e1));
       inc_neg = log1p_wide(sig_neg_d0 * e1_neg);
     } else {
@@ -202,40 +248,41 @@ __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double 
   // part1 and phi*(digamma(y+phi) - digamma(phi)) (nb_fast._part1_and_digamma)
   double part1, phi_d = 0.0;
   if (yf <= 7.0) {
-    part1 = select_by_y(yf, r.cum_log) - lgamma_1p_small(yf);
+    part1 = select_by_y(yf, r.cum_log) - h[H_LGY];  // lgamma(y + 1)
     if (GRADS) phi_d = select_by_y(yf, r.cum_frac);
   } else {
-    const double y1 = yf + 1.0;
-    const double inv_y1 = 1.0 / y1;
+    const double inv_y1 = h[H_INV_Y1];
     const double l1p = log1p_wide(r.d_b * inv_y1);
-    const double log_a1 = log(y1) + l1p;  // log(y + phi)
+    const double log_a1 = h[H_LGY] + l1p;  // log(y + 1) + log1p: log(y + phi)
     const double inv_a1 = 1.0 / (clamp_min(yf, 8.0) + phi);
     const double inv_a1_2 = inv_a1 * inv_a1;
     const double corr = (1.0 / 12.0) * (inv_a1 - inv_y1) -
                         (1.0 / 360.0) * (inv_a1 * inv_a1_2 - inv_y1 * inv_y1 * inv_y1);
     const double pair = (yf + 0.5) * l1p + corr;
-    if (phi >= 8.0) {
-      const double ub = yf * r.inv_phi_b;
-      const double l1p_b = ub < 0.5 ? log1p01(clamp_max(ub, 1.0)) : log_a1 - r.log_phi_b;
-      part1 = pair + (r.phi_b - 1.0) * l1p_b + r.b_const;
+    if (phi >= 8.0) {  // phi_b = phi
+      const double inv_phi_b = r.br[BR_INV_PHI_B], inv_phi_b3 = r.br[BR_INV_PHI_B3];
+      const double ub = yf * inv_phi_b;
+      const double l1p_b =
+          ub < 0.5 ? log1p01(clamp_max(ub, 1.0)) : log_a1 - r.br[BR_LOG_PHI_B];
+      part1 = pair + (phi - 1.0) * l1p_b + r.br[BR_B_CONST];
       if (GRADS)
-        phi_d = r.phi_b * l1p_b + 0.5 * yf * inv_a1 +
-                (1.0 / 12.0) * (r.inv_phi_b - r.phi_b * inv_a1_2) -
-                (1.0 / 120.0) * (r.inv_phi_b3 - r.phi_b * inv_a1_2 * inv_a1_2);
+        phi_d = phi * l1p_b + 0.5 * yf * inv_a1 + (1.0 / 12.0) * (inv_phi_b - phi * inv_a1_2) -
+                (1.0 / 120.0) * (inv_phi_b3 - phi * inv_a1_2 * inv_a1_2);
     } else {
-      part1 = pair + r.d_b * log_a1 - r.d_b - r.lgam_small;
+      part1 = pair + r.d_b * log_a1 - r.d_b - r.br[BR_LGAM_SMALL];
       if (GRADS) {
         const double psi_yphi =
             log_a1 - 0.5 * inv_a1 -
             inv_a1_2 * (1.0 / 12.0 - inv_a1_2 * (1.0 / 120.0 - inv_a1_2 / 252.0));
-        phi_d = clamp_max(phi, 8.0) * (psi_yphi - r.psi8) + r.shift_c;
+        phi_d = clamp_max(phi, 8.0) * (psi_yphi - r.br[BR_PSI8]) + r.br[BR_SHIFT_C];
       }
     }
   }
 
   // DELTA: part1 - phi_sp - y * inc_neg - y * softplus(-d0) (y_sp0, a table);
   // else part1 - phi * softplus(d) - y * softplus(-d)
-  const double pts = DELTA ? part1 - phi_sp - y_term - b0[3] : part1 - phi_sp - y_term;
+  double pts = part1 - phi_sp - y_term;
+  if constexpr (DELTA) pts = pts - h[H_Y_SP0];
   acc_val = acc_val + m * pts;
 
   if (GRADS) {
@@ -260,79 +307,53 @@ __device__ __forceinline__ void add_point(const GeneRow<C>& r, double m, double 
   }
 }
 
-// Device pointers of one call; those a form does not read may be null.
-struct Inputs64 {
-  const double* X;           // [S, C]
-  const double* exposure;    // [S] (!DELTA)
-  const int32_t* counts;     // [S, G]
-  const double* mask;        // [S, G]
-  const double* d0;          // [S, G] (DELTA), then sp_d0, sig_neg_d0, y_sp0
-  const double* sp_d0;
-  const double* sig_neg_d0;
-  const double* y_sp0;
-  const double* alpha;       // [B, C, G]
-  const double* alpha0;      // [C, G] (DELTA)
-  const double* log_phi;     // [B, G]
-  const double* sigma_raw0;  // [G] (DELTA)
-};
-struct Outputs64 {
-  double* partial;   // [B, gridDim.x] scratch
-  double* value;     // [B]
-  double* dalpha;    // [B, C, G] (GRADS)
-  double* dlog_phi;  // [B, G] (GRADS)
-  unsigned* ticket;  // zeroed; left at 0
+// K1 and K2 in float64 (DELTA) as forms of nb_tile.cuh
+template <bool DELTA>
+struct Fast64 {
+  using Real = double;
+  static constexpr bool BASE = DELTA;
+  static constexpr int NH = DELTA ? 6 : 2;  // H_*: 3 computed + 3 staged; 2 computed
+  static constexpr int TAB = 16;            // log(phi + k), phi / (phi + k)
+  static constexpr int NT = DELTA ? 3 : 0;  // sp_d0, sig_neg_d0, y_sp0 (Inputs64's tab)
+
+  template <int C>
+  using Row = GeneRow<C>;
+
+  template <int C, bool GRADS, class LogK, class FracK>
+  static __device__ __forceinline__ void build_row(Row<C>& r, double lp_raw, double sr0,
+                                                   LogK log_k, FracK frac_k) {
+    gene_row<C, GRADS, DELTA>(r, lp_raw, sr0, log_k, frac_k);
+  }
+
+  // The b-independent terms of a point, by the operations the point used
+  // (with DELTA, h[H_SIG_NEG_D0] holds the staged sig_neg_d0)
+  static __device__ __forceinline__ void hoist(double yf, double, double (&h)[NH]) {
+    if (yf <= 7.0) {
+      h[H_LGY] = lgamma_1p_small(yf);
+      h[H_INV_Y1] = 0.0;
+    } else {
+      const double y1 = yf + 1.0;
+      h[H_INV_Y1] = 1.0 / y1;
+      h[H_LGY] = log(y1);
+    }
+    if constexpr (DELTA) h[H_SIG_D0] = 1.0 - h[H_SIG_NEG_D0];
+  }
+
+  template <int C, bool GRADS, bool HOISTED>
+  static __device__ __forceinline__ void point(const Row<C>& r, double m, double yf,
+                                               const double* x, double ex, double d0v,
+                                               const double (&h)[NH], double& acc_val,
+                                               double (&acc_da)[C], double& acc_dlp) {
+    double hh[NH];
+#pragma unroll
+    for (int k = 0; k < NH; ++k) hh[k] = h[k];
+    if (!HOISTED) hoist(yf, d0v, hh);
+    add_point<C, GRADS, DELTA, NH>(r, m, yf, x, ex, d0v, hh, acc_val, acc_da, acc_dlp);
+  }
 };
 
-template <int C, bool GRADS, bool DELTA>
-__global__ void __launch_bounds__(ROW_THREADS)
-fast64_kernel(const Inputs64 in, const Outputs64 out, int B, int S, int G) {
-  __shared__ double warp_sums[ROW_THREADS / 32];
-  const int g = blockIdx.x * ROW_THREADS + threadIdx.x, b = blockIdx.y;
-  double v = 0.0;
-  if (g < G) {
-    GeneRow<C> row;
-    gene_row<C, DELTA>(row, in.log_phi[(size_t)b * G + g], DELTA ? in.sigma_raw0[g] : 0.0);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const double a = in.alpha[((size_t)b * C + c) * G + g];
-      row.da[c] = DELTA ? a - in.alpha0[(size_t)c * G + g] : a;
-    }
-    double acc_val = 0.0, acc_dlp = 0.0;
-    double acc_da[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc_da[c] = 0.0;
-    for (int s = 0; s < S; ++s) {
-      const size_t i = (size_t)s * G + g;
-      double b0[4] = {0.0, 0.0, 0.0, 0.0};
-      if (DELTA) {
-        b0[0] = in.d0[i];
-        b0[1] = in.sp_d0[i];
-        b0[2] = in.sig_neg_d0[i];
-        b0[3] = in.y_sp0[i];
-      }
-      add_point<C, GRADS, DELTA>(row, in.mask[i], (double)in.counts[i], &in.X[(size_t)s * C],
-                                 DELTA ? 0.0 : in.exposure[s], b0, acc_val, acc_da, acc_dlp);
-    }
-    if (GRADS) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) out.dalpha[((size_t)b * C + c) * G + g] = acc_da[c];
-      out.dlog_phi[(size_t)b * G + g] = acc_dlp;
-    }
-    v = acc_val;
-  }
-  // the block's genes: a fixed shuffle tree per warp, warps in order
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int w = 0; w < ROW_THREADS / 32; ++w) s += warp_sums[w];
-    out.partial[(size_t)b * gridDim.x + blockIdx.x] = s;
-    __threadfence();  // visible before the ticket says this block is done
-  }
-  nbk::last_block_sums_partials(out.partial, gridDim.x, B, out.value, out.ticket);
-}
+using Inputs64 = nbk::InputsT<double, 3>;
+using Outputs64 = nbk::OutputsT<double>;
 
 }  // namespace
 
@@ -340,47 +361,54 @@ extern "C" int nb_glm_fast64_max_c() { return nbk::MAX_C; }
 
 // Launches the float64 form of K1 (delta != 0: reads d0, sp_d0, sig_neg_d0,
 // y_sp0, alpha0, sigma_raw0; exposure ignored) or of K2 (delta == 0: reads
-// exposure; the baseline ignored) on `stream`, one kernel in all: grid
-// (ceil(G / ROW_THREADS), B) of ROW_THREADS threads. `partial` is
-// [B, ceil(G / ROW_THREADS)] double scratch; `ticket` is a zeroed unsigned
-// that launches on this stream share (the kernel leaves it 0);
-// `dalpha`/`dlog_phi` are ignored unless want_grads. Every array is double
-// but counts (int32). Returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a C outside 1..MAX_C or a B the grid cannot hold.
+// exposure; the baseline ignored) on `stream`, one kernel in all, with the
+// layout of ops/nb_kernel.py:layout, as nb_tile.cuh's launch_layout takes it:
+// SY = 0 is the row layout (T = 128 genes of one b per block, BY = 1, no
+// shared memory); otherwise tiled blocks of T genes x BY b-lanes x SY sample
+// lanes, SC samples per staged chunk, `smem` bytes of dynamic shared memory
+// (8-byte words). `partial` is [B, ceil(G / T)] double scratch; `ticket` is
+// a zeroed unsigned that launches on this stream share (the kernel leaves it
+// 0); `dalpha`/`dlog_phi` are ignored unless want_grads. Every array is
+// double but counts (int32). Returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a C outside 1..MAX_C, a grid of more than 65535
+// rows of blocks or a layout the kernel cannot run.
 extern "C" int nb_glm_fast64_launch(const void* X, const void* exposure, const void* counts,
                                     const void* mask, const void* d0, const void* sp_d0,
                                     const void* sig_neg_d0, const void* y_sp0, const void* alpha,
                                     const void* alpha0, const void* log_phi,
                                     const void* sigma_raw0, void* partial, void* value,
                                     void* dalpha, void* dlog_phi, void* ticket, int B, int S,
-                                    int C, int G, int want_grads, int delta, void* stream) {
+                                    int C, int G, int want_grads, int delta, int T, int BY,
+                                    int SY, int SC, int smem, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B <= 0 || G <= 0) return (int)cudaGetLastError();
-  if (S <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const Inputs64 in{static_cast<const double*>(X),          static_cast<const double*>(exposure),
-                    static_cast<const int32_t*>(counts),    static_cast<const double*>(mask),
-                    static_cast<const double*>(d0),         static_cast<const double*>(sp_d0),
-                    static_cast<const double*>(sig_neg_d0), static_cast<const double*>(y_sp0),
-                    static_cast<const double*>(alpha),      static_cast<const double*>(alpha0),
-                    static_cast<const double*>(log_phi),    static_cast<const double*>(sigma_raw0)};
+  if (S <= 0 || T <= 0 || BY <= 0 || SY < 0 || (B + BY - 1) / BY > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Inputs64 in{{static_cast<const double*>(X), static_cast<const double*>(exposure),
+                     static_cast<const int32_t*>(counts), static_cast<const double*>(mask),
+                     static_cast<const double*>(d0), static_cast<const double*>(alpha),
+                     static_cast<const double*>(alpha0), static_cast<const double*>(log_phi),
+                     static_cast<const double*>(sigma_raw0)},
+                    {static_cast<const double*>(sp_d0), static_cast<const double*>(sig_neg_d0),
+                     static_cast<const double*>(y_sp0)}};
   const Outputs64 out{static_cast<double*>(partial), static_cast<double*>(value),
                       static_cast<double*>(dalpha), static_cast<double*>(dlog_phi),
                       static_cast<unsigned*>(ticket)};
-  const dim3 grid((G + ROW_THREADS - 1) / ROW_THREADS, B);
-#define NB_ONE(n, grads, dl)                                                      \
-  {                                                                               \
-    fast64_kernel<n, grads, dl><<<grid, ROW_THREADS, 0, st>>>(in, out, B, S, G); \
-    return (int)cudaGetLastError();                                               \
-  }
-#define NB_CASE(n)                   \
-  if (want_grads) {                  \
-    if (delta) NB_ONE(n, true, true) \
-    NB_ONE(n, true, false)           \
-  }                                  \
-  if (delta) NB_ONE(n, false, true)  \
-  NB_ONE(n, false, false)
+  const nbk::InputsT<double> in_plain = in;  // the plain form stages no tables
+#define NB_CASE(n)                                                                          \
+  if (delta) {                                                                              \
+    if (want_grads)                                                                         \
+      return nbk::launch_layout<Fast64<true>, n, true>(in, out, B, S, G, T, BY, SY, SC,     \
+                                                       smem, st);                           \
+    return nbk::launch_layout<Fast64<true>, n, false>(in, out, B, S, G, T, BY, SY, SC, smem, \
+                                                      st);                                  \
+  }                                                                                         \
+  if (want_grads)                                                                           \
+    return nbk::launch_layout<Fast64<false>, n, true>(in_plain, out, B, S, G, T, BY, SY, SC, \
+                                                      smem, st);                            \
+  return nbk::launch_layout<Fast64<false>, n, false>(in_plain, out, B, S, G, T, BY, SY, SC,  \
+                                                     smem, st);
   NBK_DISPATCH_C(C, NB_CASE)
 #undef NB_CASE
-#undef NB_ONE
   return (int)cudaErrorInvalidValue;  // not reached: every case returns
 }

@@ -1,6 +1,7 @@
 // The two launch layouts of the likelihood kernels K1/K2 (nb_glm_delta.cu),
-// K3 (nb_glm_fused.cu) and K4/K5 (nb_glm_stable.cu), each one launch per
-// call, written once over a "form" that holds the kernel's own math.
+// K3 (nb_glm_fused.cu), K4/K5 (nb_glm_stable.cu) and the float64 forms of
+// K1/K2 (nb_glm_fast64.cu), each one launch per call, written once over a
+// "form" that holds the kernel's own math.
 //
 // A form F provides:
 //   BASE      true: the delta form (reads d0, alpha0, sigma_raw0; d from the
@@ -14,6 +15,15 @@
 //   point<C, GRADS, HOISTED>(row, m, yf, x[C], exposure[s], d0v, h[NH], acc...),
 //             taking the per-(s, g) terms from h (HOISTED) or computing
 //             them where the point needs them, by the same operations
+// and may provide (Form<F> below; K1-K5 take the defaults):
+//   Real      its floating-point type, of the inputs but counts, the staged
+//             planes, the table and the gradients (float; the float64
+//             forms: double). Shared memory is counted in words of Real.
+//   NT        how many of the last of its NH planes are inputs, staged as
+//             they are from Inputs' tab[0..NT) (0; the float64 delta form:
+//             its baseline tables sp_d0, sig_neg_d0, y_sp0). hoist reads
+//             them from h and fills the first NH - NT; the row layout puts
+//             them in h and lets the point compute the rest.
 //
 // Tiled (tile_kernel): a block owns T consecutive genes and BY rows b; each
 // gene has BY b-lanes by SY sample lanes that take a strided share of the
@@ -37,34 +47,83 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "nb_common.cuh"
 
 namespace nbk {
 
-// Device pointers of one call; those a form does not read may be null.
-struct Inputs {
-  const float* X;           // [S, C]
-  const float* exposure;    // [S] (BASE = false)
-  const int32_t* counts;    // [S, G]
-  const float* mask;        // [S, G]
-  const float* d0;          // [S, G] (BASE)
-  const float* alpha;       // [B, C, G]
-  const float* alpha0;      // [C, G] (BASE)
-  const float* log_phi;     // [B, G]
-  const float* sigma_raw0;  // [G] (BASE)
+// A form's Real and NT: float and 0 unless the form declares them
+template <class F, class = void>
+struct Form {
+  using Real = float;
+  static constexpr int NT = 0;
 };
-struct Outputs {
-  double* partial;   // [B, n_tiles] scratch
-  double* value;     // [B]
-  float* dalpha;     // [B, C, G] (GRADS)
-  float* dlog_phi;   // [B, G] (GRADS)
-  unsigned* ticket;  // zeroed; left at 0
+template <class F>
+struct Form<F, std::void_t<typename F::Real>> {
+  using Real = typename F::Real;
+  static constexpr int NT = F::NT;
 };
 
-// Shared-memory words (4 bytes) of one staged chunk of `rows` samples:
-// planes [rows][padded(T)] of counts, mask, (base) d0 and the form's nh
-// hoisted terms; X[rows][C]; (no base) exposure[rows]. ops/nb_kernel.py's
-// _tiled computes the same sizes.
+// Device pointers of one call; those a form does not read may be null.
+// InputsT<R, NT> adds the NT staged input tables tab[NT] ([S, G] each).
+template <class R, int NT = 0>
+struct InputsT;
+template <class R>
+struct InputsT<R, 0> {
+  const R* X;               // [S, C]
+  const R* exposure;        // [S] (BASE = false)
+  const int32_t* counts;    // [S, G]
+  const R* mask;            // [S, G]
+  const R* d0;              // [S, G] (BASE)
+  const R* alpha;           // [B, C, G]
+  const R* alpha0;          // [C, G] (BASE)
+  const R* log_phi;         // [B, G]
+  const R* sigma_raw0;      // [G] (BASE)
+};
+template <class R, int NT>
+struct InputsT : InputsT<R, 0> {
+  const R* tab[NT];
+};
+template <class R>
+struct OutputsT {
+  double* partial;   // [B, n_tiles] scratch
+  double* value;     // [B]
+  R* dalpha;         // [B, C, G] (GRADS)
+  R* dlog_phi;       // [B, G] (GRADS)
+  unsigned* ticket;  // zeroed; left at 0
+};
+using Inputs = InputsT<float>;
+using Outputs = OutputsT<float>;
+template <class F>
+using InputsOf = InputsT<typename Form<F>::Real, Form<F>::NT>;
+template <class F>
+using OutputsOf = OutputsT<typename Form<F>::Real>;
+
+// phi = e^min(log_phi, 80) and the table's logs: K1-K5 in float (fminf,
+// expf, logf), the float64 forms in double (the cap passes a NaN through,
+// as torch.clamp in nb_fast does)
+__device__ __forceinline__ float phi_of(float lp_raw) { return expf(fminf(lp_raw, LOG_PHI_CAP)); }
+__device__ __forceinline__ double phi_of(double lp_raw) {
+  return exp(lp_raw > 80.0 ? 80.0 : lp_raw);
+}
+__device__ __forceinline__ float log_of(float x) { return logf(x); }
+__device__ __forceinline__ double log_of(double x) { return log(x); }
+
+// One word of a staged plane, global -> shared without waiting
+template <class R>
+__device__ __forceinline__ void cp_async_word(R* smem, const R* gmem) {
+  if constexpr (sizeof(R) == 8)
+    cp_async8(smem, gmem);
+  else
+    cp_async4(smem, gmem);
+}
+
+// Shared-memory words (of the form's Real: 4 bytes, 8 for the float64
+// forms) of one staged chunk of `rows` samples: planes [rows][padded(T)] of
+// counts (int32, in the first half of its plane for 8-byte words), mask,
+// (base) d0 and the form's nh planes of per-(s, g) terms; X[rows][C]; (no
+// base) exposure[rows]. ops/nb_kernel.py's _tiled computes the same sizes.
 __host__ __device__ constexpr int stage_words(int rows, int T, int C, int base, int nh) {
   return rows * padded(T) * (2 + base + nh) + rows * C + (base ? 0 : rows);
 }
@@ -77,36 +136,47 @@ __host__ __device__ constexpr int fixed_words(int T, int BY, int SY, int C, int 
 }
 
 template <class F, int C>
-__device__ __forceinline__ void stage_chunk(float* buf, int r0, int rows, int g0, int T, int G,
-                                            const Inputs& in) {
+__device__ __forceinline__ void stage_chunk(typename Form<F>::Real* buf, int r0, int rows, int g0,
+                                            int T, int G, const InputsOf<F>& in) {
+  using R = typename Form<F>::Real;
+  constexpr int NT = Form<F>::NT;
   const int Tp = padded(T), plane = rows * Tp;
   int32_t* cnt = reinterpret_cast<int32_t*>(buf);
-  float* msk = buf + plane;
-  float* d0s = buf + 2 * plane;
-  float* xs = buf + (2 + F::BASE + F::NH) * plane;
-  float* ex = xs + rows * C;
+  R* msk = buf + plane;
+  R* d0s = buf + 2 * plane;
+  R* tabs = buf + (2 + F::BASE + F::NH - NT) * plane;  // the staged input tables
+  R* xs = buf + (2 + F::BASE + F::NH) * plane;
+  R* ex = xs + rows * C;
   for (int e = threadIdx.x; e < rows * T; e += blockDim.x) {
     const int r = e / T, tt = e - r * T, g = g0 + tt, i = r * Tp + tt;
     if (g < G) {
       const size_t src = (size_t)(r0 + r) * G + g;
       cp_async4(&cnt[i], &in.counts[src]);
-      cp_async4(&msk[i], &in.mask[src]);
-      if (F::BASE) cp_async4(&d0s[i], &in.d0[src]);
+      cp_async_word(&msk[i], &in.mask[src]);
+      if (F::BASE) cp_async_word(&d0s[i], &in.d0[src]);
+      if constexpr (NT > 0)
+        for (int k = 0; k < NT; ++k) cp_async_word(&tabs[k * plane + i], &in.tab[k][src]);
     } else {  // past the last gene: a zero point (masked out, finite)
       cnt[i] = 0;
-      msk[i] = 0.0f;
-      if (F::BASE) d0s[i] = 0.0f;
+      msk[i] = R(0);
+      if (F::BASE) d0s[i] = R(0);
+      if constexpr (NT > 0)
+        for (int k = 0; k < NT; ++k) tabs[k * plane + i] = R(0);
     }
   }
-  for (int e = threadIdx.x; e < rows * C; e += blockDim.x) cp_async4(&xs[e], &in.X[r0 * C + e]);
+  for (int e = threadIdx.x; e < rows * C; e += blockDim.x)
+    cp_async_word(&xs[e], &in.X[r0 * C + e]);
   if (!F::BASE)
-    for (int e = threadIdx.x; e < rows; e += blockDim.x) cp_async4(&ex[e], &in.exposure[r0 + e]);
+    for (int e = threadIdx.x; e < rows; e += blockDim.x)
+      cp_async_word(&ex[e], &in.exposure[r0 + e]);
 }
 
 template <class F, int C, bool GRADS>
 __global__ void __launch_bounds__(MAX_THREADS)
-tile_kernel(const Inputs in, const Outputs out, int B, int S, int G, int T, int BY, int SY,
-            int SC) {
+tile_kernel(const InputsOf<F> in, const OutputsOf<F> out, int B, int S, int G, int T, int BY,
+            int SY, int SC) {
+  using R = typename Form<F>::Real;
+  constexpr int NT = Form<F>::NT;
   constexpr int NQ = GRADS ? C + 2 : 1;  // value, dalpha[C], dlog_phi
   constexpr int HP = 2 + F::BASE;        // the first hoisted plane
   extern __shared__ __align__(16) float smem[];
@@ -119,48 +189,48 @@ tile_kernel(const Inputs in, const Outputs out, int B, int S, int G, int T, int 
   const bool live = g < G && b < B;
   const int Tp = padded(T), n_chunks = (S + SC - 1) / SC;
 
-  float* buf = smem;  // the staged chunk
-  float* a0s = buf + stage_words(SC, T, C, F::BASE, F::NH);
-  float* sr0s = a0s + C * T;
-  float* tab = F::BASE ? sr0s + T : a0s;  // [BY][TAB][T]
-  float* red = tab + F::TAB * BY * T;     // [NQ][L][T]
-  float* vals = red + NQ * L * T;         // [BY][T]
+  R* buf = reinterpret_cast<R*>(smem);  // the staged chunk
+  R* a0s = buf + stage_words(SC, T, C, F::BASE, F::NH);
+  R* sr0s = a0s + C * T;
+  R* tab = F::BASE ? sr0s + T : a0s;  // [BY][TAB][T]
+  R* red = tab + F::TAB * BY * T;     // [NQ][L][T]
+  R* vals = red + NQ * L * T;         // [BY][T]
 
   if (F::BASE) {
     for (int e = threadIdx.x; e < C * T; e += blockDim.x) {
       const int c = e / T, gg = g0 + (e - c * T);
-      a0s[e] = gg < G ? in.alpha0[(size_t)c * G + gg] : 0.0f;
+      a0s[e] = gg < G ? in.alpha0[(size_t)c * G + gg] : R(0);
     }
     for (int e = threadIdx.x; e < T; e += blockDim.x)
-      sr0s[e] = g0 + e < G ? in.sigma_raw0[g0 + e] : 0.0f;
+      sr0s[e] = g0 + e < G ? in.sigma_raw0[g0 + e] : R(0);
   }
   stage_chunk<F, C>(buf, 0, min(SC, S), g0, T, G, in);
 
   // ---- the (b, g) row, built once: its 8 logs (and 8 ratios) are spread
   // over the sample lanes through shared memory while chunk 0 is in flight
-  const float lp_raw = live ? in.log_phi[(size_t)b * G + g] : 0.0f;
-  const float phi = expf(fminf(lp_raw, LOG_PHI_CAP));
-  float* mytab = tab + yb * F::TAB * T + t;
+  const R lp_raw = live ? in.log_phi[(size_t)b * G + g] : R(0);
+  const R phi = phi_of(lp_raw);
+  R* mytab = tab + yb * F::TAB * T + t;
   for (int k = ys; k < 8; k += SY) {
-    mytab[k * T] = logf(phi + (float)k);
-    if (GRADS && F::TAB > 8) mytab[(8 + k) * T] = phi / (phi + (float)k);
+    mytab[k * T] = log_of(phi + (R)k);
+    if (GRADS && F::TAB > 8) mytab[(8 + k) * T] = phi / (phi + (R)k);
   }
   cp_async_wait_all();
   __syncthreads();  // the tables, alpha0/sigma_raw0 and chunk 0 are in
   typename F::template Row<C> row;
   F::template build_row<C, GRADS>(
-      row, lp_raw, F::BASE ? sr0s[t] : 0.0f, [&](int k) { return mytab[k * T]; },
+      row, lp_raw, F::BASE ? sr0s[t] : R(0), [&](int k) { return mytab[k * T]; },
       [&](int k) { return mytab[(8 + k) * T]; });
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float a = live ? in.alpha[((size_t)b * C + c) * G + g] : 0.0f;
+    const R a = live ? in.alpha[((size_t)b * C + c) * G + g] : R(0);
     row.da[c] = F::BASE ? a - a0s[c * T + t] : a;
   }
 
-  float acc_val = 0.0f, acc_dlp = 0.0f;
-  float acc_da[C];
+  R acc_val = R(0), acc_dlp = R(0);
+  R acc_da[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc_da[c] = 0.0f;
+  for (int c = 0; c < C; ++c) acc_da[c] = R(0);
 
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int r0 = ch * SC, rows = min(SC, S - r0);
@@ -172,27 +242,31 @@ tile_kernel(const Inputs in, const Outputs out, int B, int S, int G, int T, int 
     }
     const int plane = rows * Tp;
     const int32_t* cnt = reinterpret_cast<const int32_t*>(buf);
-    const float* msk = buf + plane;
-    const float* d0s = buf + 2 * plane;
-    float* hp = buf + HP * plane;
-    const float* xs = buf + (HP + F::NH) * plane;
-    const float* ex = xs + rows * C;
+    const R* msk = buf + plane;
+    const R* d0s = buf + 2 * plane;
+    R* hp = buf + HP * plane;
+    const R* xs = buf + (HP + F::NH) * plane;
+    const R* ex = xs + rows * C;
     // the b-independent terms of every staged point, once per block
     for (int e = threadIdx.x; e < rows * T; e += blockDim.x) {
       const int r = e / T, i = r * Tp + (e - r * T);
-      float h[F::NH];
-      F::hoist((float)cnt[i], F::BASE ? d0s[i] : 0.0f, h);
+      R h[F::NH];
+      if constexpr (NT > 0) {  // the staged input tables, which hoist may read
 #pragma unroll
-      for (int k = 0; k < F::NH; ++k) hp[k * plane + i] = h[k];
+        for (int k = F::NH - NT; k < F::NH; ++k) h[k] = hp[k * plane + i];
+      }
+      F::hoist((R)cnt[i], F::BASE ? d0s[i] : R(0), h);
+#pragma unroll
+      for (int k = 0; k < F::NH - NT; ++k) hp[k * plane + i] = h[k];
     }
     __syncthreads();
     for (int r = ys; r < rows; r += SY) {
       const int i = r * Tp + t;
-      float h[F::NH];
+      R h[F::NH];
 #pragma unroll
       for (int k = 0; k < F::NH; ++k) h[k] = hp[k * plane + i];
-      F::template point<C, GRADS, true>(row, msk[i], (float)cnt[i], &xs[r * C],
-                                  F::BASE ? 0.0f : ex[r], F::BASE ? d0s[i] : 0.0f, h, acc_val,
+      F::template point<C, GRADS, true>(row, msk[i], (R)cnt[i], &xs[r * C],
+                                  F::BASE ? R(0) : ex[r], F::BASE ? d0s[i] : R(0), h, acc_val,
                                   acc_da, acc_dlp);
     }
   }
@@ -207,7 +281,7 @@ tile_kernel(const Inputs in, const Outputs out, int B, int S, int G, int T, int 
   __syncthreads();
   for (int e = threadIdx.x; e < NQ * BY * T; e += blockDim.x) {
     const int tt = e % T, rb = (e / T) % BY, q = e / (T * BY);
-    float s = red[(q * L + rb) * T + tt];
+    R s = red[(q * L + rb) * T + tt];
     for (int j = 1; j < SY; ++j) s += red[(q * L + rb + BY * j) * T + tt];
     const int gg = g0 + tt, bb = b0 + rb;
     if (q == 0)
@@ -234,34 +308,42 @@ tile_kernel(const Inputs in, const Outputs out, int B, int S, int G, int T, int 
 
 template <class F, int C, bool GRADS>
 __global__ void __launch_bounds__(ROW_THREADS)
-row_kernel(const Inputs in, const Outputs out, int B, int S, int G) {
+row_kernel(const InputsOf<F> in, const OutputsOf<F> out, int B, int S, int G) {
+  using R = typename Form<F>::Real;
+  constexpr int NT = Form<F>::NT;
   __shared__ double warp_sums[ROW_THREADS / 32];
   const int g = blockIdx.x * ROW_THREADS + threadIdx.x, b = blockIdx.y;
   double v = 0.0;
   if (g < G) {
-    const float lp_raw = in.log_phi[(size_t)b * G + g];
-    const float phi = expf(fminf(lp_raw, LOG_PHI_CAP));
+    const R lp_raw = in.log_phi[(size_t)b * G + g];
+    const R phi = phi_of(lp_raw);
     typename F::template Row<C> row;
     F::template build_row<C, GRADS>(
-        row, lp_raw, F::BASE ? in.sigma_raw0[g] : 0.0f,
-        [&](int k) { return logf(phi + (float)k); },
-        [&](int k) { return phi / (phi + (float)k); });
+        row, lp_raw, F::BASE ? in.sigma_raw0[g] : R(0),
+        [&](int k) { return log_of(phi + (R)k); },
+        [&](int k) { return phi / (phi + (R)k); });
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float a = in.alpha[((size_t)b * C + c) * G + g];
+      const R a = in.alpha[((size_t)b * C + c) * G + g];
       row.da[c] = F::BASE ? a - in.alpha0[(size_t)c * G + g] : a;
     }
-    float acc_val = 0.0f, acc_dlp = 0.0f;
-    float acc_da[C];
+    R acc_val = R(0), acc_dlp = R(0);
+    R acc_da[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc_da[c] = 0.0f;
-    const float no_h[F::NH] = {};  // the point computes its per-(s, g) terms itself
+    for (int c = 0; c < C; ++c) acc_da[c] = R(0);
+    // the point computes its per-(s, g) terms itself, from the staged input
+    // tables where the form has them
+    R h[F::NH] = {};
     for (int s = 0; s < S; ++s) {
       const size_t i = (size_t)s * G + g;
-      const float yf = (float)in.counts[i];
-      const float d0v = F::BASE ? in.d0[i] : 0.0f;
+      const R yf = (R)in.counts[i];
+      const R d0v = F::BASE ? in.d0[i] : R(0);
+      if constexpr (NT > 0) {
+#pragma unroll
+        for (int k = 0; k < NT; ++k) h[F::NH - NT + k] = in.tab[k][i];
+      }
       F::template point<C, GRADS, false>(row, in.mask[i], yf, &in.X[s * C],
-                                         F::BASE ? 0.0f : in.exposure[s], d0v, no_h, acc_val,
+                                         F::BASE ? R(0) : in.exposure[s], d0v, h, acc_val,
                                          acc_da, acc_dlp);
     }
     if (GRADS) {
@@ -290,8 +372,8 @@ row_kernel(const Inputs in, const Outputs out, int B, int S, int G) {
 // BY = 1, no shared memory), otherwise tiled. Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a layout the kernel cannot run.
 template <class F, int C, bool GRADS>
-int launch_layout(const Inputs& in, const Outputs& out, int B, int S, int G, int T, int BY,
-                  int SY, int SC, int smem, cudaStream_t st) {
+int launch_layout(const InputsOf<F>& in, const OutputsOf<F>& out, int B, int S, int G, int T,
+                  int BY, int SY, int SC, int smem, cudaStream_t st) {
   if (SY == 0) {
     if (T != ROW_THREADS || BY != 1 || smem != 0) return (int)cudaErrorInvalidValue;
     row_kernel<F, C, GRADS><<<dim3((G + T - 1) / T, B), T, 0, st>>>(in, out, B, S, G);
@@ -303,7 +385,8 @@ int launch_layout(const Inputs& in, const Outputs& out, int B, int S, int G, int
     return (int)cudaErrorInvalidValue;
   const int words = stage_words(SC, T, C, F::BASE, F::NH) +
                     fixed_words(T, BY, SY, C, GRADS, F::BASE, F::TAB);
-  if (smem != 4 * words) return (int)cudaErrorInvalidValue;  // layout() and the kernel disagree
+  constexpr int word = (int)sizeof(typename Form<F>::Real);
+  if (smem != word * words) return (int)cudaErrorInvalidValue;  // layout() and the kernel disagree
   auto kernel = tile_kernel<F, C, GRADS>;
   if (smem > 48 * 1024) {
     const cudaError_t err =

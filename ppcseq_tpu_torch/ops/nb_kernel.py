@@ -67,7 +67,7 @@ _SIGNATURES = {
     "nb_glm_fast_launch": [_P] * 14 + [_I] * 11 + [_P],
     "nb_glm_fused_launch": [_P] * 13 + [_I] * 10 + [_P],
     "nb_glm_stable_launch": [_P] * 11 + [_I] * 10 + [_P],
-    "nb_glm_fast64_launch": [_P] * 17 + [_I] * 6 + [_P],
+    "nb_glm_fast64_launch": [_P] * 17 + [_I] * 11 + [_P],
 }
 _MAX_C_FN = {"nb_glm_delta.cu": "nb_glm_fast_max_c", "nb_glm_fused.cu": "nb_glm_fused_max_c",
              "nb_glm_stable.cu": "nb_glm_stable_max_c",
@@ -292,14 +292,19 @@ _SMEM_BUDGET = 100 * 1024  # per block, so that at least two blocks share an SM
 _MAX_THREADS = 256  # as MAX_THREADS in csrc/nb_common.cuh
 _ROW_THREADS = 128  # as ROW_THREADS in csrc/nb_common.cuh
 _TILES = (16, 8, 4)  # genes per block, widest first
+_F64_TILES = (32, 16, 8, 4)  # the float64 forms'
 
 # kernel -> the (BASE, NH, TAB) of its form (csrc/nb_glm_*.cu), which size
 # its shared memory by csrc/nb_tile.cuh's stage_words/fixed_words: base =
 # reads d0, alpha0 and sigma_raw0 (else exposure), nh = staged planes of
-# per-(s, g) terms, tab = per-(b, g) table slots
+# per-(s, g) terms (the float64 delta form's last 3 are its input tables
+# sp_d0, sig_neg_d0, y_sp0), tab = per-(b, g) table slots
 _CARVING = {"nb_glm_delta": (1, 4, 16), "nb_glm_plain": (0, 2, 16),
             "nb_glm_fused": (1, 4, 16), "nb_glm_stable_fwd": (0, 2, 8),
-            "nb_glm_stable_bwd": (0, 2, 16)}
+            "nb_glm_stable_bwd": (0, 2, 16),
+            "nb_glm_delta_f64": (1, 6, 16), "nb_glm_plain_f64": (0, 2, 16)}
+# bytes of a shared-memory word (the form's Real): 4, the float64 forms' 8
+_WORD = {"nb_glm_delta_f64": 8, "nb_glm_plain_f64": 8}
 
 
 def _pow2_at_least(n):
@@ -317,18 +322,26 @@ def layout(name, B, S, C, G, want_grads=True):
     the cheapest, so the tile's staging and hoisting pay even at (128, 21,
     515)), the sample lanes SY filling a block of 256 threads; where no T
     does (a small call), as many sample lanes as S uses, up to 64, and the
-    tile that fills the block."""
-    if name in F64_FORMS:  # nb_glm_fast64.cu: the row layout only
-        return _row(B, S, G)
+    tile that fills the block.
+
+    The float64 forms: tiled at every shape, T the widest of 32, 16, 8, 4
+    that gives three blocks per SM (their ~128 registers a thread hold two
+    blocks of 256 per SM), the small call as above. The row layout tied at
+    the 50k cohort's ADVI step, won only at the value-only (100, 21, 515)
+    and lost everywhere else; the rule does not depend on want_grads (a
+    value-only launch takes the gradient launch's lanes), and at (128, 21,
+    515) with gradients the tile wins by 1.2-1.6x."""
     if name not in _CARVING:
         raise ValueError(f"no launch layout for kernel {name!r}")
     stable = name in ("nb_glm_stable_fwd", "nb_glm_stable_bwd")
-    if B >= 32 and S <= 32 and not stable:
+    f64 = name in F64_FORMS
+    if B >= 32 and S <= 32 and not (stable or f64):
         return _row(B, S, G)
     BY = 1 << (min(B, 8).bit_length() - 1)
     gy = -(-B // BY)
-    per_sm = 4 if stable else 6
-    T = next((t for t in _TILES if -(-G // t) * gy >= per_sm * SM_COUNT), None)
+    per_sm = 4 if stable else 3 if f64 else 6
+    T = next((t for t in (_F64_TILES if f64 else _TILES)
+              if -(-G // t) * gy >= per_sm * SM_COUNT), None)
     if T is None:
         SY = max(8 // BY, min(_pow2_at_least(S), _MAX_THREADS // (4 * BY)))
         T = max(4, _MAX_THREADS // (BY * SY))
@@ -348,13 +361,21 @@ def _tiled(name, B, S, C, G, want_grads, T, BY, SY):
     """Blocks of T genes x BY b-lanes x SY sample lanes (warps of 4 genes x 8
     lanes), each owning BY rows b; the samples staged in chunks of SC, all S
     at once where the block's shared memory stays within _SMEM_BUDGET. smem
-    is the dynamic shared memory of the source's stage_words/fixed_words."""
+    is the dynamic shared memory of the source's stage_words/fixed_words,
+    in words of the form's Real (_WORD). For the float64 forms a chunk is a
+    whole number of sample-lane rounds (SC a multiple of SY, or all of S), so
+    that every sample stays on lane s mod SY whatever SC the shared memory
+    allows: the gradient launch and the value-only one (which differ in SC)
+    then sum each value in one order."""
     base, nh, tab = _CARVING[name]
+    word = _WORD.get(name, 4)
     Tp = T if (T // 4) % 2 else T + 4  # the source's padded(T)
     nq = C + 2 if want_grads and name != "nb_glm_stable_fwd" else 1
-    fixed = 4 * ((C * T + T if base else 0) + tab * BY * T + nq * BY * SY * T + BY * T)
-    per_row = 4 * (Tp * (2 + base + nh) + C + (0 if base else 1))
+    fixed = word * ((C * T + T if base else 0) + tab * BY * T + nq * BY * SY * T + BY * T)
+    per_row = word * (Tp * (2 + base + nh) + C + (0 if base else 1))
     SC = min(S, max(1, (_SMEM_BUDGET - fixed) // per_row))
+    if name in F64_FORMS and SC < S:
+        SC = min(S, max(SY, SC - SC % SY))
     return {"T": T, "BY": BY, "SY": SY, "SC": SC, "grid": (-(-G // T), -(-B // BY)),
             "threads": T * BY * SY, "smem": fixed + SC * per_row, "n_chunks": -(-S // SC)}
 
@@ -411,7 +432,7 @@ def _launch_fast(X, exposure, counts, mask, d0, alpha, alpha0, log_phi, sigma_ra
             _ptr(sp_d0), _ptr(sig_neg_d0), _ptr(y_sp0), alpha.data_ptr(), _ptr(alpha0),
             log_phi.data_ptr(), _ptr(sigma_raw0), partial.data_ptr(), value.data_ptr(),
             _ptr(dalpha), _ptr(dlog_phi), ticket.data_ptr(), B, S, C, G,
-            int(bool(want_grads)), int(bool(delta)),
+            int(bool(want_grads)), int(bool(delta)), *_layout_args(lay),
         ))
         return (value, dalpha, dlog_phi) if want_grads else value
     _run("nb_glm_fast_launch", name, dev, (

@@ -531,6 +531,92 @@ def test_float64_form_matches_plain_version(cuda_case, kernel):
     assert torch.equal(value_only, kern[0])
 
 
+# Forced layouts of the float64 forms' card tests beside the rule's: the
+# row layout and two tiled ones (T, BY, SY), eight b-lanes of two sample
+# lanes (b-chunks, several S-chunks at S = 601) and one b-lane of 64 sample
+# lanes (idle lanes past S at S = 21)
+_F64_FORCED = {"row": None, "tiled 16x8x2": (16, 8, 2), "tiled 4x1x64": (4, 1, 64)}
+
+
+def _f64_case(B, S, G):
+    data, alpha, log_phi = _ragged_case(B, S, G)
+    return _f64(data), alpha.double(), log_phi.double()
+
+
+def _check_float64(kernel, d, a, p, G, masked):
+    """The float64 form under the current nb_kernel.layout against its plain
+    version: value rtol 1e-10, gradients |d|/(1+|g|) < 1e-10, the masked
+    gene's gradients exactly 0, a second launch equal bit for bit and the
+    value-only launch's value equal to the gradient launch's."""
+    kern = _launch64(d, a, p, kernel)
+    again = _launch64(d, a, p, kernel)
+    value_only = _launch64(d, a, p, kernel, want_grads=False)
+    plain = _plain(d, a, p, kernel[:-4])
+    assert all(t.dtype == torch.float64 for t in kern)
+    np.testing.assert_allclose(kern[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=1e-10)
+    assert all(_scaled(k, w) < 1e-10 for k, w in zip(kern[1:], plain[1:]))
+    if masked:
+        assert torch.all(kern[1][:, :, 0] == 0) and torch.all(kern[2][:, 0] == 0)
+    assert all(torch.equal(x, y) for x, y in zip(kern, again))
+    assert torch.equal(value_only, kern[0])
+
+
+_F64_RAGGED = _RAGGED + [(5, 2001, 300)]
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta_f64", "nb_glm_plain_f64"])
+@pytest.mark.parametrize("B,S,G", _F64_RAGGED, ids=[f"B{b}-S{s}-G{g}" for b, s, g in _F64_RAGGED])
+def test_float64_ragged_edges_match_plain(kernel, B, S, G, monkeypatch):
+    """The float64 forms at the ragged shapes (several S-chunks at S = 601
+    and S = 2001, partial gene tiles and b-chunks, one gene, one sample),
+    under layout()'s rule and forced to the row layout and to two tiled ones
+    (_check_float64's limits)."""
+    _needs_card()
+    d, a, p = _f64_case(B, S, G)
+    rule = nb_kernel.layout(kernel, B, S, 2, G)
+    if S > 600:
+        assert rule["n_chunks"] > 1
+    _check_float64(kernel, d, a, p, G, G > 1)
+    for forced in _F64_FORCED.values():
+        if forced is None:
+            fixed = lambda n, B_, S_, C_, G_, want=True: nb_kernel._row(B_, S_, G_)
+        else:
+            fixed = (lambda n, B_, S_, C_, G_, want=True, f=forced:
+                     nb_kernel._tiled(n, B_, S_, C_, G_, want, *f))
+        monkeypatch.setattr(nb_kernel, "layout", fixed)
+        _check_float64(kernel, d, a, p, G, G > 1)
+
+
+@pytest.mark.parametrize("kernel", ["nb_glm_delta_f64", "nb_glm_plain_f64"])
+def test_float64_bitwise_repeatable(kernel):
+    """As test_k12_bitwise_repeatable for the float64 forms (20 launches at
+    several S-chunks and b-chunks)."""
+    _needs_card()
+    d, a, p = _f64_case(9, 601, 4201)
+    first = _launch64(d, a, p, kernel)
+    for _ in range(19):
+        again = _launch64(d, a, p, kernel)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("B", [1, 40])
+def test_float64_one_kernel_per_call(B):
+    """A float64 autograd call of the fast entry runs one CUDA kernel, the
+    float64 form's GRADS instantiation in the layout layout() chose
+    (csrc/nb_tile.cuh's tile_kernel or row_kernel at <Fast64<DELTA>, C,
+    GRADS>); a no_grad call runs one, the value-only instantiation."""
+    _needs_card()
+    d, a, p = _f64_case(B, 21, 515)
+    kind = "row" if nb_kernel.layout("nb_glm_delta_f64", B, 21, 2, 515)["SY"] == 0 else "tile"
+    ag = a.clone().requires_grad_(True)
+    nb_kernel.nb_glm_likelihood_fast(d, ag, p)  # warm: build, ticket
+    _assert_one_kernel(lambda: nb_kernel.nb_glm_likelihood_fast(d, ag, p), kind,
+                       "Fast64<true>,2,true")
+    with torch.no_grad():
+        _assert_one_kernel(lambda: nb_kernel.nb_glm_likelihood_fast(d, a, p), kind,
+                           "Fast64<true>,2,false")
+
+
 def test_float64_density_and_three_gene_case_on_the_card():
     """A float64 flat_logp(dims) runs on the card (the float64 form of K1
     with a baseline, of K2 without; one launch per value and gradient) and

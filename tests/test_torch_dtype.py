@@ -189,8 +189,9 @@ def test_float64_form_checks_and_the_routes_that_refuse_it():
 
 def test_float64_launch_signature_matches_source():
     """_SIGNATURES["nb_glm_fast64_launch"] has the C function's pointers,
-    ints and stream, in order, and the form's layout is the row layout (the
-    source cannot be compiled here)."""
+    ints and stream, in order, the layout's five among them, and the forms
+    take layout()'s tiled layout at the scale HMC's shape (the source
+    cannot be compiled here)."""
     src = (_CSRC / "nb_glm_fast64.cu").read_text()
     params = re.search(r'extern "C" int nb_glm_fast64_launch\(([^)]*)\)', src).group(1)
     kinds = [nb_kernel._P if "void*" in p else nb_kernel._I for p in params.split(",")]
@@ -198,7 +199,9 @@ def test_float64_launch_signature_matches_source():
     assert nb_kernel._MAX_C_FN["nb_glm_fast64.cu"] in src
     for name in nb_kernel.F64_FORMS:
         assert nb_kernel.KERNELS[name][0] == "nb_glm_fast64.cu"
-        assert nb_kernel.layout(name, 8, 100, 2, 50000) == nb_kernel._row(8, 100, 50000)
+        assert nb_kernel.layout(name, 8, 100, 2, 50000) == nb_kernel._tiled(
+            name, 8, 100, 2, 50000, True, 32, 8, 1)
+    assert [q.split()[-1] for q in params.split(",")[-6:-1]] == ["T", "BY", "SY", "SC", "smem"]
 
 
 @pytest.mark.parametrize("name,grads,expected", [

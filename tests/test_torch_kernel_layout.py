@@ -25,6 +25,10 @@ _FORMS = {"nb_glm_delta": ("nb_glm_delta.cu", "Fast", {"DELTA": True}),
           "nb_glm_stable_bwd": ("nb_glm_stable.cu", "Stable", {"K5": True})}
 K34 = ["nb_glm_fused", "nb_glm_stable_fwd"]
 K345 = K34 + ["nb_glm_stable_bwd"]
+# the float64 forms of K1/K2, forms of csrc/nb_tile.cuh in nb_glm_fast64.cu
+_F64_FORMS = {"nb_glm_delta_f64": ("nb_glm_fast64.cu", "Fast64", {"DELTA": True}),
+              "nb_glm_plain_f64": ("nb_glm_fast64.cu", "Fast64", {"DELTA": False})}
+F64 = list(_F64_FORMS)
 
 
 def _py(expr):
@@ -52,23 +56,35 @@ _stage_words = _source_fn("stage_words", "rows, T, C, base, nh", _TILE, padded=_
 _fixed_words = _source_fn("fixed_words", "T, BY, SY, C, grads, base, tab", _TILE)
 
 
+def _form_body(name):
+    source, form, args = {**_FORMS, **_F64_FORMS}[name]
+    return (_CSRC / source).read_text().split(f"struct {form} {{", 1)[1], args
+
+
 def _form_constants(name):
     """(BASE, NH, TAB) of kernel `name`'s form, read out of its source."""
-    source, form, args = _FORMS[name]
-    body = (_CSRC / source).read_text().split(f"struct {form} {{", 1)[1]
+    body, args = _form_body(name)
     const = dict(re.findall(r"static constexpr (?:bool|int) (\w+) = ([^;]+);", body)[:3])
     names = dict(args, true=True, false=False)
     return tuple(int(eval(_py(const[k]), names)) for k in ("BASE", "NH", "TAB"))
 
 
+def _form_word(name):
+    """Bytes of a shared-memory word of kernel `name`'s form: its Real
+    (csrc/nb_tile.cuh's Form<F>; float where the form declares none)."""
+    real = re.search(r"^\s*using Real = (\w+);", _form_body(name)[0].split("\n};", 1)[0], re.M)
+    return {"float": 4, "double": 8}[real.group(1) if real else "float"]
+
+
 def _smem_bytes(name, lay, C, grads):
     """Dynamic shared memory of one staged chunk and the fixed part, by
     csrc/nb_tile.cuh's stage_words/fixed_words and the form's constants
-    (launch_layout refuses any other size on the card)."""
+    and word (launch_layout refuses any other size on the card)."""
     base, nh, tab = _form_constants(name)
     k_grads = int(grads and name != "nb_glm_stable_fwd")  # K4 is value-only
-    return 4 * (_stage_words(lay["SC"], lay["T"], C, base, nh)
-                + _fixed_words(lay["T"], lay["BY"], lay["SY"], C, k_grads, base, tab))
+    return _form_word(name) * (_stage_words(lay["SC"], lay["T"], C, base, nh)
+                               + _fixed_words(lay["T"], lay["BY"], lay["SY"], C, k_grads,
+                                              base, tab))
 
 
 def test_source_carving_is_read():
@@ -136,7 +152,9 @@ def _check_form_cover(name, S, G):
     x 8 lanes, at most 256 threads, shared memory within the budget (<=
     232,448 B) and equal to csrc/nb_tile.cuh's carving with the form's
     constants read out of its source, for B in {1, 8, 100, 128}, C in 1..8,
-    with and without gradients."""
+    with and without gradients. S is chunked only where one more chunk step
+    (a sample row; for the float64 forms, whose chunks are whole rounds of
+    the SY sample lanes, SY rows) would pass the budget."""
     for B in (1, 8, 100, 128):
         for C in range(1, 9):
             for grads in (True, False):
@@ -155,7 +173,8 @@ def _check_form_cover(name, S, G):
                 assert lay["T"] % 4 == 0 and (lay["BY"] * lay["SY"]) % 8 == 0
                 assert lay["smem"] == _smem_bytes(name, lay, C, grads)
                 assert lay["smem"] <= nb_kernel._SMEM_BUDGET <= 232_448
-                one_more = dict(lay, SC=lay["SC"] + 1)
+                step = lay["SY"] if _form_word(name) == 8 else 1
+                one_more = dict(lay, SC=lay["SC"] + step)
                 assert lay["n_chunks"] == 1 or (
                     _smem_bytes(name, one_more, C, grads) > nb_kernel._SMEM_BUDGET)
 
@@ -172,6 +191,111 @@ def test_k5_layout_covers_every_point_once(S, G):
     """As test_layout_covers_every_point_once for K5, whose form (Stable<true>)
     carries 16 table slots (_check_form_cover)."""
     _check_form_cover("nb_glm_stable_bwd", S, G)
+
+
+@pytest.mark.parametrize("name", F64)
+@pytest.mark.parametrize("S,G", SHAPES, ids=[f"S{S}-G{G}" for S, G in SHAPES])
+def test_float64_layout_covers_every_point_once(name, S, G):
+    """As test_layout_covers_every_point_once for the float64 forms of K1/K2,
+    their shared memory in 8-byte words (_check_form_cover)."""
+    _check_form_cover(name, S, G)
+
+
+@pytest.mark.parametrize("name", F64)
+@pytest.mark.parametrize("S,G", SHAPES, ids=[f"S{S}-G{G}" for S, G in SHAPES])
+def test_float64_value_only_launch_takes_the_same_lanes(name, S, G):
+    """The float64 forms' gradient launch and value-only launch share T, BY
+    and SY, and every chunk is a whole number of sample-lane rounds (or all
+    of S): each sample then sits on lane s mod SY in both, so each value is
+    summed in one order and the two launches' values agree bit for bit."""
+    for B in (1, 8, 100, 128):
+        for C in (1, 2, 8):
+            lays = [nb_kernel.layout(name, B, S, C, G, grads) for grads in (True, False)]
+            assert {(la["T"], la["BY"], la["SY"]) for la in lays} == {
+                (lays[0]["T"], lays[0]["BY"], lays[0]["SY"])}
+            for la in lays:
+                assert la["SY"] == 0 or la["SC"] == S or la["SC"] % la["SY"] == 0
+
+
+@pytest.mark.parametrize("name", F64)
+@pytest.mark.parametrize("B,S,G,grads,min_blocks,kind", [
+    (1, 21, 515, True, 64, "tile"), (100, 21, 515, False, 3 * 132, "tile"),
+    (128, 21, 515, True, 3 * 132, "tile"), (1, 100, 600, True, 64, "tile"),
+    (8, 100, 50000, True, 3 * 132, "tile"), (1, 100, 50000, True, 3 * 132, "tile"),
+    (100, 100, 50000, False, 3 * 132, "tile")], ids=list("AEHPZVW"))
+def test_float64_layout_fills_the_card(name, B, S, G, grads, min_blocks, kind):
+    """At the main path's shapes A, E, H, P, Z, V and W the float64 forms'
+    grid reaches most of the 132 SMs at the small calls (one thread per
+    (b, g) ran 5 blocks at A and P) and three blocks per SM at the large
+    ones, in the tiled layout at every shape."""
+    lay = nb_kernel.layout(name, B, S, 2, G, grads)
+    gx, gy = lay["grid"]
+    assert gx * gy >= min_blocks
+    assert (lay["SY"] == 0) == (kind == "row")
+
+
+def test_float64_source_carving_is_read():
+    """The float64 forms' constants, word and staged tables read out of
+    csrc/nb_glm_fast64.cu are layout()'s: the delta form stages counts,
+    mask, d0 and six planes of per-(s, g) terms (1/(y+1), log(y+1) or
+    lgamma(y+1), 1 - sig_neg_d0, and the input tables sp_d0, sig_neg_d0,
+    y_sp0), the plain form counts, mask and two; both tables hold 8 logs and
+    8 ratios; words are doubles."""
+    assert [_form_constants(n) for n in F64] == [(1, 6, 16), (0, 2, 16)]
+    assert all(nb_kernel._CARVING[n] == _form_constants(n) for n in F64)
+    assert [_form_word(n) for n in F64] == [8, 8]
+    assert all(nb_kernel._WORD.get(n, 4) == _form_word(n) for n in nb_kernel._CARVING)
+    body = _form_body("nb_glm_delta_f64")[0]
+    nt = re.search(r"static constexpr int NT = ([^;]+);", body).group(1)
+    assert [eval(_py(nt), {"DELTA": d, "true": True, "false": False}) for d in (True, False)] \
+        == [3, 0]
+    assert _stage_words(1, 16, 2, 1, 6) == 20 * 9 + 2
+    lay = nb_kernel._tiled("nb_glm_delta_f64", 8, 100, 2, 50000, True, 16, 8, 2)
+    assert lay["smem"] == 8 * (lay["SC"] * (20 * 9 + 2) + 2 * 16 + 16 + 16 * 8 * 16
+                               + 4 * 8 * 2 * 16 + 8 * 16)
+
+
+def _wavefronts(T, BY, SY, word, stride):
+    """Shared-memory wavefronts of the widest warp read of a staged plane in
+    the tiled layout: thread -> (gene t, lane lam), a warp 4 genes x 8
+    lanes, b-lane lam % BY, sample lane lam // BY reading row r = lam // BY
+    at word r * stride + t. 4-byte words: one request of 32 banks. 8-byte
+    words: each half-warp its own request over 16 bank pairs (a warp's 256
+    bytes are at least two wavefronts). A request takes as many wavefronts as
+    the most distinct words that share a bank (pair)."""
+    GG = T // 4
+    worst = 0
+    for warp in range(T * BY * SY // 32):
+        halves = [range(32)] if word == 4 else [range(16), range(16, 32)]
+        n = 0
+        for half in halves:
+            banks = {}
+            for lane in half:
+                t = 4 * (warp % GG) + (lane & 3)
+                lam = 8 * (warp // GG) + (lane >> 2)
+                w = (lam // BY) * stride + t
+                banks.setdefault(w % (32 if word == 4 else 16), set()).add(w)
+            n += max(len(v) for v in banks.values())
+        worst = max(worst, n)
+    return worst
+
+
+@pytest.mark.parametrize("T", [4, 8, 16, 32])
+def test_padded_stride_is_conflict_free_for_both_words(T):
+    """The source's padded(T) (csrc/nb_common.cuh), re-derived for 8-byte
+    words: at every (BY, SY) of a tiled layout, a warp's read of a staged
+    plane is one wavefront in 4-byte words and two in 8-byte words, the
+    least for 256 bytes; without the padding (stride T) it is more wherever
+    the 8 lanes sit on several samples and T / 4 is even."""
+    Tp = _padded(T)
+    for BY in (1, 2, 4, 8):
+        for SY in (1, 2, 4, 8, 16, 32, 64):
+            if (BY * SY) % 8 or not 32 <= T * BY * SY <= 256:
+                continue
+            assert _wavefronts(T, BY, SY, 4, Tp) == 1
+            assert _wavefronts(T, BY, SY, 8, Tp) == 2
+            if BY == 1 and (T // 4) % 2 == 0:
+                assert _wavefronts(T, BY, SY, 8, T) > 2 and _wavefronts(T, BY, SY, 4, T) > 1
 
 
 # K4's layout at the ADVI step, the bench HMC and the scale HMC (C = 2), as
