@@ -49,6 +49,25 @@ so the exit code is non-zero):
              their error against float64; ms of a value + gradient call and
              of a no_grad value, beside "plain" (masked_likelihood under
              autograd).
+  4c. graphs the samplers' CUDA graphs (ppcseq_tpu_torch/infer/graphs.py)
+             against their eager loops (graphs.disabled()), eager first, in
+             this process before the children start (the card to itself):
+             fit_advi at the 15-gene README configuration's VB settings in
+             float32 and float64, fit_advi on the 50k x 100 synthetic
+             cohort (300 steps: the command line's ADVI step (1, 100,
+             50000) and ELBO (100, 100, 50000)), and bench.py's HMC and
+             ChEES configurations (ADVI warm start included). Each row:
+             bitwise_equal (SHA-256 of the fit's mean, log_sd and ELBO
+             trace, or of the draws), launches of both runs (each a path,
+             equal), and per path the wall, ms per step or per batched
+             leapfrog, graph replays, captures and their seconds, the
+             warm-up's and captures' own launches, and over a short window
+             of the same path (torch.profiler) the device's busy share,
+             the host's launch calls and device kernels per unit, and each
+             likelihood kernel's launches as the device ran them
+             (profile_advi.kernel_launches), which must equal
+             nb_kernel.LAUNCHES's count of the same window. A mismatch
+             fails the phase.
   5. hmc     jittered HMC at full width: (a) bench.py's configuration
              (bundled cohort, no baseline, so flat_logp(dims) runs K2; ADVI
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
@@ -129,8 +148,9 @@ so the exit code is non-zero):
              the card, through the float64 forms of K1 and K2
              (csrc/nb_glm_fast64.cu). (a) Each form against its plain
              version (nb_fast in float64 on the card) at A (1, 21, 515), H
-             (128, 21, 515), Z (8, 100, 50000) and V (1, 100, 50000) with
-             gradients and W (100, 100, 50000) value-only: value rtol 1e-10,
+             (128, 21, 515), P (1, 100, 600), Z (8, 100, 50000) and V (1,
+             100, 50000) with gradients and E (100, 21, 515) and W (100,
+             100, 50000) value-only: value rtol 1e-10,
              gradients |d|/(1+|g|) < 1e-10, a second call bitwise equal,
              the value-only launch's value that of the gradient launch;
              rows as phase kernel's with the launch layout (T, BY, SY, SC,
@@ -638,16 +658,187 @@ def _hmc_run(data, dims, likelihood, *, chains, warmup, draws, L, seed, device,
     return res, row
 
 
+def _fit_digest(res) -> str:
+    """SHA-256 of an ADVI fit's mean, log_sd and ELBO trace bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (res.mean, res.log_sd):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(np.ascontiguousarray(res.elbo_trace).tobytes())
+    return h.hexdigest()
+
+
+def _graphs_row(name, run, digest, measure, window, expect):
+    """One row of phase graphs: run() eagerly (graphs.disabled()) and then
+    through CUDA graphs, each a path of the kernels line with its launch
+    counts; the digests of the two results must be equal, and so must their
+    launch counts. measure(result) -> (units, seconds): its steps or batched
+    leapfrogs and the seconds they took; window = (fn, units): a short run
+    of the same path after it and its units (or a function of its result
+    that counts them), profiled (profile_advi.profiled) for the device's
+    busy share and the host's launch calls per unit, and for the launches of
+    each likelihood kernel that the device ran in it: they must equal what
+    nb_kernel.LAUNCHES counted in the same window, so a graph's replayed
+    launches are seen on the card, not only booked."""
+    import contextlib
+
+    import torch
+
+    from ppcseq_tpu_torch.infer import graphs
+
+    row, digests = {"row": name}, {}
+    for path in ("eager", "graphs"):
+        with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+            graphs.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, counts = _run_path(f"graphs {name} {path}", run, expect)
+            wall = time.perf_counter() - t0
+            stats = dict(graphs.STATS)
+            units, seconds = measure(res)
+            win_fn, win_units = window
+            prof, counted = _window_launches(win_fn, win_units)
+        digests[path] = digest(res)
+        row[path] = dict(
+            wall_s=wall, units=units, ms_per_unit=seconds / units * 1e3, launches=counts,
+            replays=stats["replays"], captures=stats["captures"], capture_s=stats["capture_s"],
+            build_launches=stats["build_launches"], window_units=prof["units"],
+            window_wall_ms=prof["wall_ms"], window_device_busy_share=prof["device_busy_share"],
+            window_host_launches_per_unit=prof["host_launches_per_unit"],
+            window_device_kernels_per_unit=prof["device_kernels_per_unit"],
+            window_launches_counted=counted,
+            window_launches_on_device=prof["kernel_launches"],
+            window_captures=graphs.STATS["captures"])
+        del res
+    graphs.release()
+    row.update(bitwise_equal=digests["eager"] == digests["graphs"], digest=digests["graphs"],
+               launches_equal=row["eager"]["launches"] == row["graphs"]["launches"],
+               launches_seen_on_device=all(
+                   row[p]["window_launches_counted"] == row[p]["window_launches_on_device"]
+                   and all(row[p]["window_launches_on_device"].get(k, 0) > 0 for k in expect)
+                   for p in ("eager", "graphs")),
+               speedup=row["eager"]["ms_per_unit"] / row["graphs"]["ms_per_unit"])
+    print("phase graphs " + json.dumps(row), flush=True)
+    if not (row["bitwise_equal"] and row["launches_equal"] and row["launches_seen_on_device"]):
+        raise AssertionError(f"graphs {name}: the graphs' run is not the eager run's: {row}")
+    return row
+
+
+def _window_launches(fn, units):
+    """(profiled(fn, units), the likelihood kernels' launches that Python
+    counted in that window): nb_kernel.LAUNCHES zeroed just before it, plus
+    the launches of any capture in it (graphs.STATS["build_launches"]). The
+    profile's kernel_launches are what the device ran; a session that
+    recorded no kernel at all (_device_us) is run once more."""
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.ops import nb_kernel
+    from ppcseq_tpu_torch.utils.profile_advi import profiled
+
+    for _ in range(2):
+        nb_kernel.reset_launches()
+        graphs.reset_stats()
+        prof = profiled(fn, units)
+        counted = _sum_counts(nb_kernel.LAUNCHES, graphs.STATS["build_launches"])
+        if prof["device_busy_share"] is not None:
+            break
+    return prof, {k: v for k, v in counted.items() if v}
+
+
+def _sum_counts(a: dict, b: dict) -> dict:
+    """Two dicts of launch counts, summed per kernel."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+
+
+def _batched_leapfrogs(res) -> int:
+    """Leapfrogs of an HMC run's chain batch (each one batched evaluation)."""
+    return res.num_leapfrog // res.draws.shape[0]
+
+
+def phase_graphs(counts_df, device):
+    """Eager loops against their CUDA graphs, bit for bit, in one call: the
+    15-gene ADVI fit (float32, float64), the 50k command line's ADVI step and
+    ELBO shapes, and bench.py's HMC and ChEES configurations."""
+    import torch
+
+    from ppcseq_tpu_torch.infer.advi import fit_advi
+    from ppcseq_tpu_torch.infer.hmc import run_hmc
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.utils.profile_advi import _model
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    def advi_rows(name, data, dims, dtype, kernel, max_iter=50000):
+        logp = nb_model.flat_logp(dims)
+        init = nb_model.smart_init(data, dims)
+
+        def fit(n):
+            return fit_advi(logp, dims.dim, torch.Generator(device=device).manual_seed(0),
+                            data=data, init_mean=init, max_iter=n, device=device, dtype=dtype)
+
+        box = {}
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(max_iter)
+            torch.cuda.synchronize()
+            box["s"] = time.perf_counter() - t0
+            return res
+
+        _graphs_row(name, run, _fit_digest, lambda res: (res.iterations, box["s"]),
+                    (lambda: fit(100), 100), [kernel])
+
+    for dtype, kernel in ((torch.float32, "nb_glm_delta"), (torch.float64, "nb_glm_delta_f64")):
+        _, data, dims = _model(device, dtype)
+        advi_rows(f"15-gene ADVI fit {str(dtype)[6:]}", data, dims, dtype, kernel)
+    counts, X, exposure, _ = synthetic_cohort(50000, 100, n_check=100, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 100, device=device,
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    advi_rows("50k ADVI step (1, 100, 50000) and ELBO (100, 100, 50000)", data, dims,
+              torch.float32, "nb_glm_delta", max_iter=300)
+    del data
+    torch.cuda.empty_cache()
+
+    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
+    md = _bundled_prep(counts_df, fifteen, 500)
+    data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
+                                       device=device, dtype=torch.float32)
+    init = nb_model.smart_init(data, dims)
+    logp = nb_model.flat_logp(dims)
+    for name, chees, seed in (("bench.py HMC", False, 0), ("bench.py ChEES", True, 3)):
+        def window(chees=chees):
+            return run_hmc(logp, dims.dim, torch.Generator(device=device).manual_seed(9),
+                           data=data, num_chains=128, num_warmup=2, num_draws=2,
+                           num_leapfrog=48, init_theta=init, adapt_trajectory=chees,
+                           device=device)
+
+        _graphs_row(
+            name,
+            lambda chees=chees, seed=seed: _hmc_run(data, dims, "auto", chains=128, warmup=30,
+                                                    draws=83, L=48, seed=seed, device=device,
+                                                    adapt_trajectory=chees),
+            lambda out: _digest(out[0].draws),
+            lambda out: (_batched_leapfrogs(out[0]), out[1]["hmc_s"]),
+            (window, _batched_leapfrogs), ["nb_glm_plain"])
+
+
 def _busy_window(data, dims, likelihood, device, window=None):
     """The device's busy share over a short run through flat_logp(dims,
     likelihood), by default HMC (8 chains, 4 + 4 iterations of 8
     leapfrogs), after one unprofiled run: the CUDA kernels' device time
-    (torch.profiler, CUDA activity only) over the window's wall."""
+    (torch.profiler, CUDA activity only) over the window's wall. The
+    likelihood kernels' launches that the device ran in the window
+    (profile_advi.kernel_launches) must equal those nb_kernel.LAUNCHES
+    counted in it (zeroed just before, plus any capture's own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ppcseq_tpu_torch.infer import graphs
     from ppcseq_tpu_torch.infer.hmc import run_hmc
     from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.ops import nb_kernel
+    from ppcseq_tpu_torch.utils.profile_advi import kernel_launches
 
     logp = nb_model.flat_logp(dims, likelihood)
     gen = torch.Generator(device=device).manual_seed(2)
@@ -660,19 +851,28 @@ def _busy_window(data, dims, likelihood, device, window=None):
 
     window()
     torch.cuda.synchronize()
+    nb_kernel.reset_launches()
+    graphs.reset_stats()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = window()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") * 1e-6
+    counted = {k: v for k, v in _sum_counts(nb_kernel.LAUNCHES,
+                                            graphs.STATS["build_launches"]).items() if v}
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA") * 1e-6
+    observed = kernel_launches(events)
     if busy <= 0:  # the session recorded no kernel (_device_us): not measured
         print("chip_smoke: torch.profiler recorded no device time in the busy window",
               file=sys.stderr, flush=True)
-        busy = None
+        busy = observed = None
+    elif observed != counted:
+        raise AssertionError(f"{likelihood} window: the device ran {observed} likelihood "
+                             f"kernels, nb_kernel.LAUNCHES counted {counted}")
     return dict(window_leapfrogs=res.num_leapfrog, window_wall_s=wall, window_device_s=busy,
-                device_busy_share=None if busy is None else busy / wall)
+                device_busy_share=None if busy is None else busy / wall,
+                window_launches_counted=counted, window_launches_on_device=observed)
 
 
 def _strip_baseline(data):
@@ -1097,6 +1297,7 @@ def _cli_batch(device, tmp):
     import torch
 
     from ppcseq_tpu_torch import _native
+    from ppcseq_tpu_torch.infer import graphs
     from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_tidy
 
     t0 = time.perf_counter()
@@ -1115,6 +1316,7 @@ def _cli_batch(device, tmp):
     for run in ("cold", "resume"):
         outs[run] = os.path.join(tmp, run)
         torch.cuda.reset_peak_memory_stats(device)
+        graphs.reset_stats()
         (wall, stages), counts = _run_path(f"cli 50k {run}", lambda: _cli_main(argv(outs[run])),
                                            ["nb_glm_delta"] if run == "cold" else [])
         k1 += counts["nb_glm_delta"]
@@ -1130,7 +1332,9 @@ def _cli_batch(device, tmp):
                    checked=CLI_COHORT["n_check"], wall_s=wall, stages_s=stages,
                    host_prep_s=host_prep, host_prep_share=host_prep / wall,
                    peak_device_bytes=torch.cuda.max_memory_allocated(device),
-                   k1_launches=counts["nb_glm_delta"],
+                   k1_launches=counts["nb_glm_delta"], graph_captures=graphs.STATS["captures"],
+                   graph_capture_s=graphs.STATS["capture_s"],
+                   graph_replays=graphs.STATS["replays"],
                    vb_iterations=[meta[p].get("vb_iterations") for p in ("pass1", "pass2")],
                    result_rows=len(summary), sample_rows=len(flat),
                    bounds_finite=bool(np.isfinite(flat[[".lower", ".upper"]].to_numpy()).all()),
@@ -1252,8 +1456,9 @@ def phase_cli(counts_df, device):
 def phase_dtype_kernels(counts_df, device):
     """(a) of phase dtype: the float64 forms of K1 and K2 against their
     plain versions (nb_fast.glm_delta / glm_plain in float64 on the card) at
-    A (1, 21, 515), H (128, 21, 515), Z (8, 100, 50000) and V (1, 100,
-    50000) with gradients and W (100, 100, 50000) value-only: value rtol
+    A (1, 21, 515), H (128, 21, 515), P (1, 100, 600), Z (8, 100, 50000)
+    and V (1, 100, 50000) with gradients and E (100, 21, 515) and W (100,
+    100, 50000) value-only: value rtol
     1e-10, gradients |d|/(1+|g|) < 1e-10, one launch of the form and no
     other kernel per call, float64 outputs, exactly zero gradients for the
     masked gene, a second call equal bit for bit and, with gradients, the
@@ -1269,8 +1474,9 @@ def phase_dtype_kernels(counts_df, device):
     md = _bundled_prep(counts_df, fifteen, 500)
     bundled = (md.counts, md.X, md.exposure_rate, md.n_check)
     z = synthetic_cohort(n_genes=50000, n_samples=100, n_check=100, seed=0)[:3] + (100,)
-    cases = [("A", 1, bundled, True), ("H", 128, bundled, True), ("Z", 8, z, True),
-             ("V", 1, z, True), ("W", 100, z, False)]
+    p600 = synthetic_cohort(n_genes=600, n_samples=100, n_check=100, seed=0)[:3] + (100,)
+    cases = [("A", 1, bundled, True), ("E", 100, bundled, False), ("H", 128, bundled, True),
+             ("P", 1, p600, True), ("Z", 8, z, True), ("V", 1, z, True), ("W", 100, z, False)]
     rows = []
     for shape, B, cohort, grads in cases:
         data, alpha, log_phi, g_m = _kernel_case(*cohort, B, 7, device, dtype=torch.float64)
@@ -1889,6 +2095,7 @@ def main() -> None:
     counts_df = load_counts()
     kernel_rows = phase_kernel(counts_df, device)
     phase_forms(counts_df, device)
+    phase_graphs(counts_df, device)  # with the card to itself: eager and graph walls
     children, thread = _start_children()
     try:
         hmc_launches = phase_hmc(counts_df, device)

@@ -18,9 +18,19 @@ defined by a prototype, as in JAX: an int D, an example tensor, or a dict
 of them (model/params.state_spec). A structured state is fitted as its
 flat vector, and the density receives a dict of batched leaves
 [B, *leaf_shape]: the port's batched form of JAX's vmapped density. The
-result's mean and log_sd come back in the prototype's structure. The
-steps run eagerly, one small op at a time (~40 per step plus one
-likelihood launch); JAX ran each 100-step chunk as one compiled scan.
+result's mean and log_sd come back in the prototype's structure.
+
+On a CUDA device (infer/graphs.py) the fit replays CUDA graphs, the
+counterpart of JAX's compiled chunk and ELBO (_get_advi_fns): one Adam
+step captured over static buffers and replayed `eval_every` times per
+chunk, and the ELBO evaluation. The noise is drawn
+eagerly, one randn per chunk, and copied into the graph's buffer, so the
+generator advances as in the eager fit and no generator lives in a graph;
+the stop rule reads the ELBO on the host once per chunk, as JAX does. The
+entry is cached per (density, configuration, shapes, dtype, device) with
+the data as an operand, so both passes of the pipeline and every retry of
+vb_iterative replay one capture. On the CPU the steps run eagerly, one op
+at a time, and the graphs' results are those bits.
 
 With a `layout` (parallel/sharding.Layout with a gene shard) the fit is
 gene-sharded: `log_density` is a rank's local log density over its local
@@ -39,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.infer import graphs
 from ppcseq_tpu_torch.model.params import StateSpec, state_spec
 from ppcseq_tpu_torch.utils.device import resolve_device
 
@@ -49,7 +60,7 @@ B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 class AdamState:
     mu: dict  # first moments, keyed like the parameters
     nu: dict  # second moments
-    count: int  # steps taken
+    count: torch.Tensor  # steps taken: a 0-dim int64 tensor on the parameters' device
 
 
 @dataclass
@@ -97,12 +108,26 @@ def normal_noise(generator, shape, dim, layout, device, dtype):
 
 def adam_init(params: dict) -> AdamState:
     zeros = {k: torch.zeros_like(v) for k, v in params.items()}
-    return AdamState(mu=zeros, nu=dict(zeros), count=0)
+    count = torch.zeros((), dtype=torch.int64, device=params["m"].device)
+    return AdamState(mu=zeros, nu=dict(zeros), count=count)
 
 
-def schedule(learning_rate: float, count: int) -> float:
-    """Inverse-sqrt step-size decay (advi.py:71-73 of the JAX package)."""
-    return learning_rate / math.sqrt(1.0 + count / 100.0)
+def adam_scalars(count: torch.Tensor, learning_rate: float, dtype):
+    """(bc1, bc2, step) of the Adam step taken after `count` steps, 0-dim
+    tensors in `dtype` on count's device: the bias corrections
+    1 - B1^(count+1) and 1 - B2^(count+1), and the step
+    -learning_rate / sqrt(1 + count/100), the inverse-sqrt decay read at the
+    pre-increment count (advi.py:71-73 of the JAX package, as optax reads
+    it). Computed in float64 on the device by the eager and the captured
+    step alike, so the two share their bits: a Python float would be frozen
+    into a graph, and CUDA divides by a host scalar as a product with its
+    reciprocal but by a tensor truly."""
+    c = count.to(torch.float64)
+    n = c + 1.0
+    bc1 = (1.0 - torch.pow(B1, n)).to(dtype)
+    bc2 = (1.0 - torch.pow(B2, n)).to(dtype)
+    step = (-learning_rate / torch.sqrt(1.0 + c / 100.0)).to(dtype)
+    return bc1, bc2, step
 
 
 def advi_step(params: dict, state: AdamState, eps, log_density, learning_rate: float):
@@ -114,18 +139,108 @@ def advi_step(params: dict, state: AdamState, eps, log_density, learning_rate: f
     log_s = params["log_s"].detach().requires_grad_(True)
     loss = -elbo_estimate(log_density, m, log_s, eps)
     grads = dict(zip(("m", "log_s"), torch.autograd.grad(loss, (m, log_s))))
-    count = state.count + 1
-    bc1 = 1.0 - B1**count
-    bc2 = 1.0 - B2**count
-    step = -schedule(learning_rate, state.count)
     new_params, mu, nu = {}, {}, {}
     with torch.no_grad():
+        bc1, bc2, step = adam_scalars(state.count, learning_rate, params["m"].dtype)
         for k, g in grads.items():
             mu[k] = (1.0 - B1) * g + B1 * state.mu[k]
             nu[k] = (1.0 - B2) * (g * g) + B2 * state.nu[k]
             update = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
             new_params[k] = params[k] + step * update
-    return new_params, AdamState(mu=mu, nu=nu, count=count), loss.detach()
+    return new_params, AdamState(mu=mu, nu=nu, count=state.count + 1), loss.detach()
+
+
+class _EagerFit:
+    """fit_advi's chunk of Adam steps and its ELBO, one op at a time: the
+    CPU's fit, the gene-sharded one and, under graphs.disabled(), the
+    card's reference."""
+
+    def __init__(self, log_density, density, params, learning_rate, layout, dim):
+        self.log_density, self.density = log_density, density
+        self.params, self.state = params, adam_init(params)
+        self.learning_rate, self.layout, self.dim = learning_rate, layout, dim
+
+    def chunk(self, noise):
+        for k in range(noise.shape[0]):
+            self.params, self.state, _ = advi_step(self.params, self.state, noise[k],
+                                                   self.density, self.learning_rate)
+
+    def elbo(self, eps):
+        m, log_s = self.params["m"], self.params["log_s"]
+        with torch.no_grad():
+            if self.layout is None:
+                return elbo_estimate(self.log_density, m, log_s, eps)
+            return _sharded_elbo(self.log_density, m, log_s, eps, self.layout, self.dim)
+
+    def result(self):
+        return self.params["m"], self.params["log_s"]
+
+
+class CapturedFit:
+    """fit_advi's chunk and ELBO as CUDA graphs (graphs.Region) over static
+    buffers, the counterpart of JAX's _get_advi_fns: one Adam step, replayed
+    `eval_every` times per chunk, reading its noise from the chunk's
+    [eval_every, grad_samples, D] buffer at count mod eval_every (a device
+    index, so one graph serves every step of a chunk), and writing the
+    parameters, moments and count back into their buffers; and the ELBO at
+    the [elbo_samples, D] noise buffer. The step runs advi_step, the eager
+    fit's function, so the two fits share their bits. `load` starts a fit:
+    its initial parameters, zero moments and count, its data."""
+
+    def __init__(self, log_density, spec, data, m, log_s, *, eval_every, grad_samples,
+                 elbo_samples, learning_rate):
+        kw = dict(dtype=m.dtype, device=m.device)
+        self.m, self.log_s = m.clone(), log_s.clone()
+        self.mu = {"m": torch.zeros_like(m), "log_s": torch.zeros_like(m)}
+        self.nu = {"m": torch.zeros_like(m), "log_s": torch.zeros_like(m)}
+        self.count = torch.zeros((), dtype=torch.int64, device=m.device)
+        self.noise = torch.zeros((eval_every, grad_samples, m.shape[0]), **kw)
+        self.eps = torch.zeros((elbo_samples, m.shape[0]), **kw)
+        self.data = graphs.static_operand(data)
+        if data is not None:
+            log_density = functools.partial(_call_with_data, log_density, self.data)
+        self.density = spec.bind(log_density)
+        self.eval_every, self.learning_rate = eval_every, learning_rate
+        self.step_graph = graphs.Region(self._step, m.device, "ADVI step")
+        self.elbo_graph = graphs.Region(self._elbo, m.device, "ADVI ELBO")
+
+    def _step(self):
+        k = torch.remainder(self.count, self.eval_every).reshape(1)
+        params = {"m": self.m, "log_s": self.log_s}
+        state = AdamState(mu=self.mu, nu=self.nu, count=self.count)
+        new, new_state, _ = advi_step(params, state, self.noise.index_select(0, k)[0],
+                                      self.density, self.learning_rate)
+        with torch.no_grad():
+            for name, buf in params.items():
+                buf.copy_(new[name])
+                self.mu[name].copy_(new_state.mu[name])
+                self.nu[name].copy_(new_state.nu[name])
+            self.count.copy_(new_state.count)
+
+    def _elbo(self):
+        with torch.no_grad():
+            return elbo_estimate(self.density, self.m, self.log_s, self.eps)
+
+    def load(self, m, log_s, data):
+        with torch.no_grad():
+            self.m.copy_(m)
+            self.log_s.copy_(log_s)
+            for buf in (*self.mu.values(), *self.nu.values(), self.count):
+                buf.zero_()
+            if data is not None:
+                graphs.load_operand(self.data, data)
+
+    def chunk(self, noise):
+        self.noise.copy_(noise)
+        self.step_graph.replay(self.eval_every)
+
+    def elbo(self, eps):
+        self.eps.copy_(eps)
+        self.elbo_graph.replay()
+        return self.elbo_graph.outputs
+
+    def result(self):
+        return self.m.clone(), self.log_s.clone()
 
 
 def fit_advi(
@@ -157,7 +272,8 @@ def fit_advi(
     estimated with `elbo_samples` draws every `eval_every` steps; stop when
     the mean or the median of the last `window` relative changes drops
     below tol_rel_obj (Stan ADVI's rule). `device` defaults to the card and
-    must exist (utils/device.resolve_device). With a gene `layout` the
+    must exist (utils/device.resolve_device); there the steps replay CUDA
+    graphs, except under a gene `layout`. With a gene `layout` the
     state is flat: the prototype is the global dimension, `log_density` the
     rank's local one, and `init_mean` global or local; the result's mean
     and log_sd are local.
@@ -180,30 +296,31 @@ def fit_advi(
     )
     if layout is not None:
         m0 = layout.local(m0).clone()
-    params = {"m": m0,
-              "log_s": torch.full((local_dim,), float(init_log_sd), dtype=dtype, device=device)}
-    state = adam_init(params)
-    if data is not None:
-        log_density = functools.partial(_call_with_data, log_density, data)
-    log_density = spec.bind(log_density)
-    density = log_density if layout is None else layout.density(log_density)
+    log_s0 = torch.full((local_dim,), float(init_log_sd), dtype=dtype, device=device)
+    if layout is None and graphs.enabled(device):
+        key = (log_density, spec, graphs.operand_key(data), eval_every, grad_samples,
+               elbo_samples, float(learning_rate), dim, dtype, device)
+        fit = graphs.cached("advi", key, lambda: CapturedFit(
+            log_density, spec, data, m0, log_s0, eval_every=eval_every,
+            grad_samples=grad_samples, elbo_samples=elbo_samples, learning_rate=learning_rate))
+        fit.load(m0, log_s0, data)
+    else:
+        if data is not None:
+            log_density = functools.partial(_call_with_data, log_density, data)
+        log_density = spec.bind(log_density)
+        density = log_density if layout is None else layout.density(log_density)
+        fit = _EagerFit(log_density, density, {"m": m0, "log_s": log_s0}, learning_rate,
+                        layout, dim)
 
     elbos: list[float] = []
     deltas: list[float] = []
     converged = False
     it = 0
     while it < max_iter:
-        noise = normal_noise(generator, (eval_every, grad_samples), dim, layout, device, dtype)
-        for k in range(eval_every):
-            params, state, _ = advi_step(params, state, noise[k], density, learning_rate)
+        fit.chunk(normal_noise(generator, (eval_every, grad_samples), dim, layout, device, dtype))
         it += eval_every
-        eps = normal_noise(generator, (elbo_samples,), dim, layout, device, dtype)
-        with torch.no_grad():
-            if layout is None:
-                elbo = float(elbo_estimate(log_density, params["m"], params["log_s"], eps))
-            else:
-                elbo = float(_sharded_elbo(log_density, params["m"], params["log_s"], eps,
-                                           layout, dim))
+        elbo = float(fit.elbo(normal_noise(generator, (elbo_samples,), dim, layout, device,
+                                           dtype)))
         if not np.isfinite(elbo):
             break
         if elbos:
@@ -218,9 +335,10 @@ def fit_advi(
                 break
         elbos.append(elbo)
 
+    m, log_s = fit.result()
     return ADVIResult(
-        mean=spec.unflatten(params["m"]),
-        log_sd=spec.unflatten(params["log_s"]),
+        mean=spec.unflatten(m),
+        log_sd=spec.unflatten(log_s),
         elbo=elbos[-1] if elbos else float("nan"),
         elbo_trace=np.asarray(elbos),
         converged=converged,

@@ -22,11 +22,20 @@ density, the energies, their differences and the accept probabilities are
 float64 whatever the state's dtype: at a log joint of -3e7 float32 rounds
 an energy difference to nats.
 
-The loop runs eagerly, one leapfrog at a time (JAX ran it as one compiled
-scan). The plain sampler does not wait on the device: L_t is drawn on the
-host from a CPU generator, and the accept and step-size state stay on the
-device until the end of the run. The ChEES warmup reads its L_t from the
-device once per draw; its sampler reads all the draws' L_t at once.
+On a CUDA device (infer/graphs.py) a draw's L_t leapfrogs replay one
+captured leapfrog (`CapturedTrajectory`, the counterpart of the leapfrog
+scan that JAX compiles in _build_runner, _build_chees_warmup and
+_build_sampler) L_t times over static z, r, g, lp, eps and inverse-mass
+buffers; the momentum and accept draws, the energy change and the accept
+stay eager, a handful of launches per draw, so the generators advance as in
+the eager run and no generator lives in a graph. The capture is cached per
+(density, data structure, shapes, dtype, device), the data an operand, so
+the pipeline's passes and its retry ladder replay one capture. On the CPU,
+and under a mesh, the leapfrogs run eagerly, one op at a time. The plain
+sampler does not wait on the device: L_t is drawn on the host from a CPU
+generator, and the accept and step-size state stay on the device until the
+end of the run. The ChEES warmup reads its L_t from the device once per
+draw; its sampler reads all the draws' L_t at once.
 
 Sharded runs (parallel/sharding.py): `run_hmc(mesh=)` splits the chain
 batch over a `chains` axis and, given the model's dims, the genes over a
@@ -54,6 +63,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.infer import graphs
 from ppcseq_tpu_torch.model.params import state_spec
 from ppcseq_tpu_torch.parallel.sharding import Layout, mesh_axes, shard_data
 from ppcseq_tpu_torch.utils.device import resolve_device
@@ -163,6 +173,66 @@ def leapfrog(z, r, g, eps, inv_mass, grad_fn):
     return z1, r_half + 0.5 * eps * g1, g1, lp1
 
 
+def eager_trajectory(grad_fn, inv_mass):
+    """trajectory(z, r, g, lp, eps, L) -> (z, r, g, lp) after L leapfrogs,
+    one eager op at a time."""
+
+    def trajectory(z, r, g, lp, eps, L):
+        for _ in range(L):
+            z, r, g, lp = leapfrog(z, r, g, eps, inv_mass, grad_fn)
+        return z, r, g, lp
+
+    return trajectory
+
+
+class CapturedTrajectory:
+    """A draw's leapfrogs as replays of one captured leapfrog
+    (graphs.Region) over static z, r, g, lp, eps and inv_mass buffers, the
+    leapfrog writing its result back into them; the density reads the
+    static copy of the run's data. `load` starts a run (its data and
+    inverse mass), `run` is eager_trajectory's trajectory. The buffers'
+    first values (z, zero momentum, gradient, lp and step) make the warm-up
+    runs evaluate the density at z."""
+
+    def __init__(self, log_density, data, z, inv_mass):
+        self.z, self.r, self.g = z.clone(), torch.zeros_like(z), torch.zeros_like(z)
+        self.lp = torch.zeros(z.shape[0], dtype=torch.float64, device=z.device)
+        self.eps = torch.zeros((), dtype=z.dtype, device=z.device)
+        self.inv_mass = inv_mass.clone()
+        self.data = graphs.static_operand(data)
+        self.grad_fn = functools.partial(logp_and_grad, log_density, data=self.data)
+        self.graph = graphs.Region(self._leapfrog, z.device, "HMC leapfrog")
+
+    def _leapfrog(self):
+        out = leapfrog(self.z, self.r, self.g, self.eps, self.inv_mass, self.grad_fn)
+        for buf, new in zip((self.z, self.r, self.g, self.lp), out):
+            buf.copy_(new)
+
+    def load(self, data, inv_mass):
+        self.inv_mass.copy_(inv_mass)
+        if data is not None:
+            graphs.load_operand(self.data, data)
+
+    def run(self, z, r, g, lp, eps, L):
+        for buf, new in zip((self.z, self.r, self.g, self.lp, self.eps), (z, r, g, lp, eps)):
+            buf.copy_(new)
+        self.graph.replay(L)
+        return self.z.clone(), self.r.clone(), self.g.clone(), self.lp.clone()
+
+
+def _trajectory(log_density, data, grad_fn, z, inv_mass, layout, device):
+    """The run's trajectory function: captured on the card without a mesh
+    (cached, graphs.cached), else eager."""
+    if layout is not _SINGLE or not graphs.enabled(device):
+        return eager_trajectory(grad_fn, inv_mass)
+    key = (log_density, graphs.operand_key(data), tuple(z.shape), tuple(inv_mass.shape),
+           z.dtype, z.device)
+    captured = graphs.cached("leapfrog", key,
+                             lambda: CapturedTrajectory(log_density, data, z, inv_mass))
+    captured.load(data, inv_mass)
+    return captured.run
+
+
 _SINGLE = Layout()  # one process: every reduction is the plain local one
 
 
@@ -207,16 +277,14 @@ def _energy_change(lp0, r0, lp1, r1, inv_mass, layout=_SINGLE):
     return torch.where(torch.isnan(delta), torch.full_like(delta, math.inf), delta)
 
 
-def _snapshot_transition(grad_fn, z, lp, g, eps, L_t, inv_mass, draws, layout=_SINGLE):
-    """One ChEES-path draw of L_t leapfrogs from momenta
+def _snapshot_transition(trajectory, z, lp, g, eps, L_t, inv_mass, draws, layout):
+    """One ChEES-path draw of L_t leapfrogs through `trajectory` from momenta
     draws.momentum / sqrt(inv_mass) (hmc.py:192-229): a divergence is
     rejected and reported with accept probability 0. Returns (z, lp, g,
     accept_prob, diverging, z_end, r_end), z_end/r_end the trajectory's
     end before the accept."""
     r0 = draws.momentum(z.shape) / torch.sqrt(inv_mass)
-    zp, rp, gp, lpp = z, r0, g, lp
-    for _ in range(L_t):
-        zp, rp, gp, lpp = leapfrog(zp, rp, gp, eps, inv_mass, grad_fn)
+    zp, rp, gp, lpp = trajectory(z, r0, g, lp, eps, L_t)
     delta = _energy_change(lp, r0, lpp, rp, inv_mass, layout)
     diverging = delta > MAX_DELTA_ENERGY
     accept_prob = torch.where(diverging, torch.zeros_like(delta),
@@ -233,10 +301,11 @@ def _trajectory_steps(u, T, eps, cap):
     return torch.clamp(torch.ceil(u * T / eps), 1, cap).to(torch.int64)
 
 
-def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, draws, u_seq,
-                  layout=_SINGLE):
+def _chees_warmup(grad_fn, trajectory, z0, inv_mass, mu, num_warmup, L_cap, target_accept,
+                  draws, u_seq, layout=_SINGLE):
     """ChEES/SNAPER warmup (hmc.py:234-336): dual averaging on the step size
-    and Adam ascent on log T, T jittered by u_seq[i]. Returns (z, lp, g,
+    and Adam ascent on log T, T jittered by u_seq[i]; the draws' leapfrogs
+    through `trajectory`. Returns (z, lp, g,
     eps, T, leapfrogs per chain); eps and T are 0-dim tensors in the state's
     dtype, the adaptation runs in float64. Under a chains `layout` z0 is the
     rank's slice of the chain batch and every statistic across chains is
@@ -261,7 +330,7 @@ def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, d
         u = u_seq[i]
         L_t = int(_trajectory_steps(u, torch.exp(log_T).to(dtype), eps, L_cap))
         total += L_t
-        z1, lp, g, accept, _, zp, rp = _snapshot_transition(grad_fn, z, lp, g, eps, L_t,
+        z1, lp, g, accept, _, zp, rp = _snapshot_transition(trajectory, z, lp, g, eps, L_t,
                                                             inv_mass, draws, layout)
         xw, xwp, x1w = z * w, zp * w, z1 * w
         m_xw, m_xwp, m_x1w, accept_mean = layout.chain_means([xw, xwp, x1w, accept])
@@ -300,8 +369,8 @@ def _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap, target_accept, d
     return z, lp, g, torch.exp(log_eps_avg).to(dtype), torch.exp(log_T_avg).to(dtype), total
 
 
-def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draws, u_seq,
-                  layout=_SINGLE):
+def _chees_sample(trajectory, z, lp, g, eps, T, inv_mass, num_draws, L_static, draws, u_seq,
+                  layout):
     """The draws after the ChEES warmup (hmc.py:339-363): draw k takes
     clip(ceil(u_seq[k] T / eps), 1, L_static) leapfrogs, all read from the
     device at once. Returns (draws [num_draws, chains, D], accept, diverging,
@@ -310,7 +379,7 @@ def _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws, L_static, draw
     out = torch.empty((num_draws,) + tuple(z.shape), dtype=z.dtype, device=z.device)
     accepts, divs = [], []
     for k in range(num_draws):
-        z, lp, g, accept, div, _, _ = _snapshot_transition(grad_fn, z, lp, g, eps, steps[k],
+        z, lp, g, accept, div, _, _ = _snapshot_transition(trajectory, z, lp, g, eps, steps[k],
                                                            inv_mass, draws, layout)
         out[k] = z
         accepts.append(accept)
@@ -388,15 +457,15 @@ def run_hmc(
         draws = LayoutDraws(generator, device, dtype, layout, num_chains, D)
 
     length_gen = _length_generator(generator, device)
+    z = _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout)
+    trajectory = _trajectory(log_density, data, grad_fn, z, inv_mass, layout, device)
     if adapt_trajectory:
-        z = _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout)
         return _run_chees(grad_fn, z, inv_mass, math.log(10.0 * step_size0), num_warmup,
-                          num_draws, int(num_leapfrog), target_accept, draws, layout)
-    return _run_jittered(grad_fn, inv_mass, draws, layout, length_gen, num_chains=num_chains,
-                         num_warmup=num_warmup, num_draws=num_draws, num_leapfrog=num_leapfrog,
-                         jitter_low=jitter_low, target_accept=target_accept,
-                         init_theta=init_theta, init_jitter=init_jitter,
-                         step_size0=step_size0, D=D, kw=kw)
+                          num_draws, int(num_leapfrog), target_accept, draws, layout, trajectory)
+    return _run_jittered(grad_fn, z, inv_mass, draws, layout, trajectory, length_gen,
+                         num_chains=num_chains, num_warmup=num_warmup, num_draws=num_draws,
+                         num_leapfrog=num_leapfrog, jitter_low=jitter_low,
+                         target_accept=target_accept, step_size0=step_size0, kw=kw)
 
 
 def sampler_spec(prototype, dims, mesh, who):
@@ -475,24 +544,22 @@ def _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout):
     return base[None, :] + init_jitter * draws.momentum((c, d))
 
 
-def _run_jittered(grad_fn, inv_mass, draws, layout, length_gen, *, num_chains, num_warmup,
-                  num_draws, num_leapfrog, jitter_low, target_accept, init_theta, init_jitter,
-                  step_size0, D, kw) -> HMCResult:
-    """The plain sampler of run_hmc (hmc.py:91-180 of the JAX package): dual
-    averaging over the warmup, then the draws. Under a sharded `layout` the
+def _run_jittered(grad_fn, z, inv_mass, draws, layout, trajectory, length_gen, *, num_chains,
+                  num_warmup, num_draws, num_leapfrog, jitter_low, target_accept, step_size0,
+                  kw) -> HMCResult:
+    """The plain sampler of run_hmc (hmc.py:91-180 of the JAX package) from
+    the initial state z: dual averaging over the warmup, then the draws,
+    each draw's leapfrogs through `trajectory`. Under a sharded `layout` the
     state is the rank's [its chains, its coordinates]."""
     L = int(num_leapfrog)
     L_min = max(1, int(np.ceil(jitter_low * L)))
     sqrt_inv_mass = torch.sqrt(inv_mass)
-    z = _initial_state(draws, num_chains, D, init_theta, init_jitter, kw, layout)
     n_local = z.shape[0]
 
     def transition(z, lp, g, eps):
         L_t = int(torch.randint(L_min, L + 1, (1,), generator=length_gen))
         r0 = draws.momentum(z.shape) / sqrt_inv_mass[None, :]
-        zp, rp, gp, lpp = z, r0, g, lp
-        for _ in range(L_t):
-            zp, rp, gp, lpp = leapfrog(zp, rp, gp, eps, inv_mass, grad_fn)
+        zp, rp, gp, lpp = trajectory(z, r0, g, lp, eps, L_t)
         delta = _energy_change(lp, r0, lpp, rp, inv_mass, layout)
         diverging = delta > MAX_DELTA_ENERGY
         accept_prob = torch.clamp(torch.exp(-delta), max=1.0)
@@ -539,21 +606,22 @@ def _run_jittered(grad_fn, inv_mass, draws, layout, length_gen, *, num_chains, n
 
 
 def _run_chees(grad_fn, z0, inv_mass, mu, num_warmup, num_draws, L_cap, target_accept, draws,
-               layout=_SINGLE):
+               layout, trajectory):
     """The adapt_trajectory=True branch of run_hmc (hmc.py:455-496): the
     ChEES warmup, then the draws at the smallest _L_BUCKETS cap that holds
-    the adapted T / eps (L_cap if none)."""
+    the adapted T / eps (L_cap if none), their leapfrogs through
+    `trajectory`."""
     kw = dict(device=z0.device, dtype=z0.dtype)
     num_chains = z0.shape[0] * layout.chains_size
     u_warm = torch.as_tensor(_halton_seq(num_warmup), **kw)
-    z, lp, g, eps, T, warm_lf = _chees_warmup(grad_fn, z0, inv_mass, mu, num_warmup, L_cap,
-                                              target_accept, draws, u_warm, layout)
+    z, lp, g, eps, T, warm_lf = _chees_warmup(grad_fn, trajectory, z0, inv_mass, mu, num_warmup,
+                                              L_cap, target_accept, draws, u_warm, layout)
     eps_f, T_f = float(eps), float(T)
     L_star = max(1, int(np.ceil(T_f / max(eps_f, 1e-12))))
     bucket = next((b for b in _L_BUCKETS if b >= min(L_star, L_cap)), L_cap)
     u_draws = torch.as_tensor(_halton_seq(num_draws, base=3), **kw)
-    out, accepts, divs, samp_lf = _chees_sample(grad_fn, z, lp, g, eps, T, inv_mass, num_draws,
-                                                bucket, draws, u_draws, layout)
+    out, accepts, divs, samp_lf = _chees_sample(trajectory, z, lp, g, eps, T, inv_mass,
+                                                num_draws, bucket, draws, u_draws, layout)
     accept_prob, divergences = _chain_stats(layout, accepts, divs, num_chains)
     return HMCResult(
         draws=out.transpose(0, 1).contiguous(),

@@ -495,7 +495,17 @@ def flat_logp(dims: ModelDims, likelihood: str = "auto"):
     flat vector and data its genes, and f is the shard's local part of the
     log joint (the counterpart of JAX's tree_logp, nb_model.py:833-875), so
     every route also runs per shard.
+
+    f has a stable identity, cached per (dims, likelihood) as JAX's
+    (nb_model.py:796-811 of the JAX package): the samplers key their CUDA
+    graphs on the density function (infer/graphs.py), so the pipeline's two
+    passes, which take the data as an operand, replay one capture.
     """
+    return _flat_logp_cached(dims, likelihood)
+
+
+@functools.lru_cache(maxsize=64)
+def _flat_logp_cached(dims: ModelDims, likelihood: str):
     lfn = _resolve_likelihood_fn("fast" if likelihood == "auto" else likelihood)
 
     def f(theta, data, shard=None):

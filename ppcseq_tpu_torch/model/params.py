@@ -153,16 +153,24 @@ class StateSpec:
         """A density of the flat state [B, D] from one of this structure:
         the samplers' batched form of JAX's vmapped pytree density. The
         arguments after the state pass through; a gene `shard=` keyword
-        unflattens in the shard's local layout."""
-        if self.flat:
-            return log_density
+        unflattens in the shard's local layout. Two bindings of one spec
+        and density are equal, so a sampler's graph cache
+        (infer/graphs.py), keyed by the density, replays one capture
+        across calls as JAX's runner cache does."""
+        return log_density if self.flat else BoundDensity(self, log_density)
 
-        def flat_density(theta, *args, **kwargs):
-            shard = kwargs.get("shard")
-            spec = self if shard is None else self.localized(shard.local_dims)
-            return log_density(spec.unflatten(theta), *args, **kwargs)
 
-        return flat_density
+@dataclass(frozen=True)
+class BoundDensity:
+    """StateSpec.bind's density of the flat state."""
+
+    spec: StateSpec
+    log_density: object
+
+    def __call__(self, theta, *args, **kwargs):
+        shard = kwargs.get("shard")
+        spec = self.spec if shard is None else self.spec.localized(shard.local_dims)
+        return self.log_density(spec.unflatten(theta), *args, **kwargs)
 
 
 def tree_map(fn, tree):

@@ -29,7 +29,9 @@ differentiable in alpha and log_phi, are the JAX package's:
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs the kernel's plain version. There is no fallback. `LAUNCHES` counts
-the launches of each kernel (CUDA only); `reset_launches()` zeroes them.
+the launches of each kernel (CUDA only; a replayed CUDA graph adds the
+launches its capture holds, infer/graphs.Region); `reset_launches()`
+zeroes them.
 `layout()` chooses the launch layout of each kernel per shape;
 `work()` counts a call's bytes and operations (FP32, or FP64 for the
 float64 forms) for its bound (chip_smoke.py), on the branch shares of
@@ -384,8 +386,16 @@ _TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its launches 
 
 
 def _ticket(dev, stream):
+    """The stream's ticket, allocated (zeroed) at its first launch. A CUDA
+    graph's kernels keep the ticket of the stream they were captured on, so
+    infer/graphs.py warms a region up on that stream first: a ticket made
+    inside a capture would be memory of the graph's pool, zeroed only when
+    the graph replays."""
     key = (dev.index, stream)
     if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a kernel's first launch on a stream is under CUDA graph "
+                               "capture: warm the stream up before capturing")
         _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _TICKETS[key]
 

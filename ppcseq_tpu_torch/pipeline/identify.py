@@ -40,6 +40,7 @@ import torch
 
 from ppcseq_tpu_torch.data import ingest
 from ppcseq_tpu_torch.formula.design import create_design_matrix, parse_formula
+from ppcseq_tpu_torch.infer import graphs
 from ppcseq_tpu_torch.infer.advi import advi_sample, fit_advi, vb_iterative
 from ppcseq_tpu_torch.infer.chains import chains_for_run, mcmc_iterations
 from ppcseq_tpu_torch.infer.diagnostics import summarize
@@ -206,7 +207,8 @@ def do_inference(
     if approximate_posterior_inference:
         with timed("variational fit"):
             res = vb_iterative(
-                functools.partial(logp, data=data, shard=shard), dims.dim, g_fit,
+                _density(logp, shard), dims.dim, g_fit,
+                data=data,
                 max_iter=K.VB_MAX_ITER,
                 tol_rel_obj=K.VB_TOL_REL_OBJ,  # hard-coded in reference R/utilities.R:1493
                 init_mean=init,
@@ -263,6 +265,13 @@ def _mesh_axes(mesh, device) -> dict:
     return axes
 
 
+def _density(logp, shard):
+    """flat_logp(dims)'s f(theta, data) for the fits, bound to a gene shard
+    under one: unbound, its identity is the key of the fits' CUDA graphs
+    (infer/graphs.py), with the data an operand."""
+    return logp if shard is None else functools.partial(logp, shard=shard)
+
+
 def _checked_cols(dims) -> np.ndarray:
     """Global flat indices of the checked block: the scalars, intercept and
     sigma_raw of the checked genes, alpha_sub_1 and alpha_2."""
@@ -317,7 +326,7 @@ def _mcmc_fit(logp, data, dims, init, draws_practical, generator, device, dtype,
     shard = None if layout is None else layout.genes
     # a quick meanfield fit supplies the initial point and the diagonal mass
     warm = fit_advi(
-        functools.partial(logp, data=data, shard=shard), dims.dim, generator,
+        _density(logp, shard), dims.dim, generator, data=data,
         init_mean=init, tol_rel_obj=0.01, learning_rate=0.3,
         eval_every=50, grad_samples=4, layout=layout, device=device, dtype=dtype,
     )
@@ -481,6 +490,21 @@ def _finish_inference(
                            counts_rng=counts_rng, additional_parameters=additional)
 
 
+def _releasing_graphs(fn):
+    """fn, then the samplers' cached CUDA graphs dropped (infer/graphs.py),
+    so that their memory pools do not outlive the call."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            graphs.release()
+
+    return wrapper
+
+
+@_releasing_graphs
 def identify_outliers(
     data: pd.DataFrame,
     formula: str = "~ 1",

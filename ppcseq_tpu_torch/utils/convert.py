@@ -55,7 +55,7 @@ def advi_state_from_arrays(m, log_s, mu_m, mu_s, nu_m, nu_s, count,
     state = AdamState(
         mu={"m": t(mu_m), "log_s": t(mu_s)},
         nu={"m": t(nu_m), "log_s": t(nu_s)},
-        count=int(np.asarray(count)),
+        count=torch.tensor(int(np.asarray(count)), device=device),
     )
     return params, state
 

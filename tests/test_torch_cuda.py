@@ -1,6 +1,7 @@
 """The CUDA likelihood kernels against their plain torch versions, a short
 HMC run through each likelihood route, short NUTS and ChEES runs
-through "fast", and the command-line entry point, on the card.
+through "fast", the command-line entry point, and the samplers' CUDA
+graphs against their eager loops (bit for bit), on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. They import
 no JAX, so the card can run them without the JAX package's test setup:
@@ -14,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from ppcseq_tpu_torch.infer import graphs
+from ppcseq_tpu_torch.infer.advi import fit_advi
 from ppcseq_tpu_torch.infer.hmc import run_hmc
 from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
@@ -757,6 +760,19 @@ def test_short_chees_run_launches_k1_at_every_gradient():
     assert torch.isfinite(res.draws).all() and res.trajectory_length > 0
     evals = 1 + res.num_leapfrog // 16
     assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": evals}
+    # the leapfrogs replay a captured one: the density's Python ran at the
+    # first gradient, the warm-up and the capture; eagerly, at every gradient
+    assert batches == [16] * (1 + graphs.WARMUP_RUNS + 1)
+    batches.clear()
+    nb_kernel.reset_launches()
+    with graphs.disabled():
+        res = run_hmc(logp, dims.dim, torch.Generator(device=dev).manual_seed(0), data=data,
+                      num_chains=16, num_warmup=10, num_draws=5, num_leapfrog=8,
+                      adapt_trajectory=True, init_theta=nb_model.smart_init(data, dims),
+                      device=dev)
+    torch.cuda.synchronize()
+    evals = 1 + res.num_leapfrog // 16
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": evals}
     assert batches == [16] * evals
 
 
@@ -858,3 +874,81 @@ def test_sharded_density_through_k1_in_a_one_rank_nccl_group(tmp_path, monkeypat
         assert _scaled(g, want_g) < 1e-4
     finally:
         dist.destroy_process_group()
+
+
+def _eager_and_graphs(run):
+    """run() eagerly (graphs.disabled()) and through graphs: both results
+    and the kernel launches each counted."""
+    out = {}
+    for name in ("eager", "graphs"):
+        nb_kernel.reset_launches()
+        if name == "eager":
+            with graphs.disabled():
+                res = run()
+        else:
+            res = run()
+        torch.cuda.synchronize()
+        out[name] = (res, {k: v for k, v in nb_kernel.LAUNCHES.items() if v})
+    graphs.release()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fit_advi_through_graphs_is_the_eager_fit_at_15_genes(dtype):
+    """fit_advi at the 15-gene README configuration (the VB fit's settings):
+    the graphs' mean, log_sd and ELBO trace equal the eager fit's bit for
+    bit, with the same launches of K1 (or its float64 form); the side
+    stream's ticket is back at 0."""
+    _needs_card()
+    from ppcseq_tpu_torch.utils.profile_advi import _model
+
+    dev = torch.device("cuda")
+    _, data, dims = _model(dev, dtype)
+    init = nb_model.smart_init(data, dims)
+    out = _eager_and_graphs(lambda: fit_advi(
+        nb_model.flat_logp(dims), dims.dim, torch.Generator(device=dev).manual_seed(0),
+        data=data, init_mean=init, device=dev, dtype=dtype))
+    (eager, eager_n), (got, got_n) = out["eager"], out["graphs"]
+    assert torch.equal(got.mean, eager.mean) and torch.equal(got.log_sd, eager.log_sd)
+    assert np.array_equal(got.elbo_trace, eager.elbo_trace) and got.converged == eager.converged
+    kernel = "nb_glm_delta" if dtype == torch.float32 else "nb_glm_delta_f64"
+    assert got_n == eager_n == {kernel: got.iterations + len(got.elbo_trace)}
+    stream = graphs._side_stream(dev).cuda_stream
+    assert int(nb_kernel._TICKETS[(dev.index or 0, stream)].item()) == 0
+
+
+@pytest.mark.parametrize("chees", [False, True], ids=["jittered", "chees"])
+def test_run_hmc_through_graphs_draws_the_eager_draws(chees):
+    """A short jittered-HMC run and a short ChEES run through "fast" (K1):
+    the graphs' draws equal the eager run's bit for bit, with the same step
+    size and the same K1 launches (one per gradient of the chain batch)."""
+    _needs_card()
+    dev = torch.device("cuda")
+    data, dims, _, _ = _fast_case(dev)
+    out = _eager_and_graphs(lambda: run_hmc(
+        nb_model.flat_logp(dims), dims.dim, torch.Generator(device=dev).manual_seed(0),
+        data=data, num_chains=16, num_warmup=10, num_draws=6, num_leapfrog=8,
+        adapt_trajectory=chees, init_theta=nb_model.smart_init(data, dims), device=dev))
+    (eager, eager_n), (got, got_n) = out["eager"], out["graphs"]
+    assert torch.equal(got.draws, eager.draws) and got.step_size == eager.step_size
+    assert np.array_equal(got.accept_prob, eager.accept_prob)
+    assert got_n == eager_n == {"nb_glm_delta": 1 + got.num_leapfrog // 16}
+
+
+def test_a_failed_capture_raises_and_runs_nothing_eagerly():
+    """A density that reads a value back to the host cannot be captured:
+    fit_advi raises, after the warm-up's and the capture's calls only (no
+    eager loop takes over), caches nothing, and the card keeps working."""
+    _needs_card()
+    dev = torch.device("cuda")
+    calls = []
+
+    def host_reading(theta):
+        calls.append(1)
+        return -0.5 * torch.sum(theta * theta, dim=-1) * float(theta.abs().max() > -1.0)
+
+    with pytest.raises(RuntimeError, match="capture of the ADVI step failed"):
+        fit_advi(host_reading, 3, torch.Generator(device=dev).manual_seed(0), max_iter=200,
+                 device=dev)
+    assert len(calls) == graphs.WARMUP_RUNS + 1 and "advi" not in graphs._CACHE
+    assert float(torch.ones(4, device=dev).sum()) == 4.0

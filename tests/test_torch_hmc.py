@@ -203,9 +203,10 @@ def test_chees_warmup_replays_jax(L_cap):
     def grad_fn(x):
         return logp_and_grad(lambda y: -0.5 * torch.einsum("bi,ij,bj->b", y - mt, pt, y - mt), x)
 
-    z, _, _, eps, T, L = hmc._chees_warmup(grad_fn, torch.as_tensor(z0), torch.as_tensor(inv_mass),
-                                           mu_da, W, L_cap, 0.8, _JaxKeys(key, W),
-                                           torch.as_tensor(u))
+    trajectory = hmc.eager_trajectory(grad_fn, torch.as_tensor(inv_mass))
+    z, _, _, eps, T, L = hmc._chees_warmup(grad_fn, trajectory, torch.as_tensor(z0),
+                                           torch.as_tensor(inv_mass), mu_da, W, L_cap, 0.8,
+                                           _JaxKeys(key, W), torch.as_tensor(u))
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-9)
     np.testing.assert_allclose([float(eps), float(T)], [float(jeps), float(jT)], rtol=1e-9)
     assert L == int(jL)
