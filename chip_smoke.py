@@ -55,19 +55,23 @@ so the exit code is non-zero):
              fit_advi at the 15-gene README configuration's VB settings in
              float32 and float64, fit_advi on the 50k x 100 synthetic
              cohort (300 steps: the command line's ADVI step (1, 100,
-             50000) and ELBO (100, 100, 50000)), and bench.py's HMC and
-             ChEES configurations (ADVI warm start included). Each row:
+             50000) and ELBO (100, 100, 50000)), bench.py's HMC and
+             ChEES configurations (ADVI warm start included), and phase
+             nuts's NUTS cut to warmup 30 and 20 draws (its warm start, 4
+             chains, max_depth 10). Each row:
              bitwise_equal (SHA-256 of the fit's mean, log_sd and ELBO
              trace, or of the draws), launches of both runs (each a path,
-             equal), and per path the wall, ms per step or per batched
-             leapfrog, graph replays, captures and their seconds, the
+             equal), and per path the wall, ms per step, per batched
+             leapfrog or per batched NUTS evaluation, graph replays,
+             captures and their seconds, the
              warm-up's and captures' own launches, and over a short window
              of the same path (torch.profiler) the device's busy share,
              the host's launch calls and device kernels per unit, and each
              likelihood kernel's launches as the device ran them
              (profile_advi.kernel_launches), which must equal
-             nb_kernel.LAUNCHES's count of the same window. A mismatch
-             fails the phase.
+             nb_kernel.LAUNCHES's count of the same window, and row_s,
+             the row's own seconds (runs, windows and profiles). A
+             mismatch fails the phase.
   5. hmc     jittered HMC at full width: (a) bench.py's configuration
              (bundled cohort, no baseline, so flat_logp(dims) runs K2; ADVI
              warm start, 128 chains, warmup 30, L=48, 83 draws per chain;
@@ -86,10 +90,14 @@ so the exit code is non-zero):
              cohort, no baseline (K2), D = 1051, 4 chains, warmup 150,
              NUTS_DRAWS draws per chain, max_depth 10, from the ADVI warm
              start's mean and variances as the pipeline's NUTS branch
-             starts; divergences <= 2%, rhat_max < 1.1; the row has the
-             chains' own and the lockstep leapfrogs, the host syncs, the
-             mean tree depth and the device's busy share over a short
-             profiled window. nuts-tree: the same run (generator, warm
+             starts, through CUDA graphs (infer/nuts.CapturedTree);
+             divergences <= 2%, rhat_max < 1.1; the row has the chains'
+             own and the lockstep leapfrogs, the host syncs, the mean tree
+             depth, ms per batched evaluation, graph replays, captures and
+             their seconds, and over a short profiled window the device's
+             busy share, the host's launch calls per batched evaluation
+             and the K2 launches the device ran (equal to those counted).
+             nuts-tree: the same run (generator, warm
              start) with the model's tree as run_nuts's prototype
              (smart_init(as_tree=True), dims=, tree_logp(dims)), cut to
              NUTS_TREE_DRAWS draws: after tree_to_theta its draws must be
@@ -197,6 +205,14 @@ import time
 import numpy as np
 
 SOURCE_DIR = "ppcseq_tpu_torch/csrc/"
+
+
+_T0 = time.perf_counter()  # this process's start
+
+
+def _clock(what: str) -> None:
+    """When `what` happened, in seconds since this process started."""
+    print(f"phase clock {what} at {time.perf_counter() - _T0:.1f} s", flush=True)
 
 
 def _fail(msg: str) -> None:
@@ -688,6 +704,7 @@ def _graphs_row(name, run, digest, measure, window, expect):
     from ppcseq_tpu_torch.infer import graphs
 
     row, digests = {"row": name}, {}
+    t_row = time.perf_counter()
     for path in ("eager", "graphs"):
         with graphs.disabled() if path == "eager" else contextlib.nullcontext():
             graphs.reset_stats()
@@ -718,7 +735,8 @@ def _graphs_row(name, run, digest, measure, window, expect):
                    row[p]["window_launches_counted"] == row[p]["window_launches_on_device"]
                    and all(row[p]["window_launches_on_device"].get(k, 0) > 0 for k in expect)
                    for p in ("eager", "graphs")),
-               speedup=row["eager"]["ms_per_unit"] / row["graphs"]["ms_per_unit"])
+               speedup=row["eager"]["ms_per_unit"] / row["graphs"]["ms_per_unit"],
+               row_s=time.perf_counter() - t_row)
     print("phase graphs " + json.dumps(row), flush=True)
     if not (row["bitwise_equal"] and row["launches_equal"] and row["launches_seen_on_device"]):
         raise AssertionError(f"graphs {name}: the graphs' run is not the eager run's: {row}")
@@ -800,12 +818,8 @@ def phase_graphs(counts_df, device):
     del data
     torch.cuda.empty_cache()
 
-    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
-    md = _bundled_prep(counts_df, fifteen, 500)
-    data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
-                                       device=device, dtype=torch.float32)
+    data, dims, logp = _fifteen_model(counts_df, device)
     init = nb_model.smart_init(data, dims)
-    logp = nb_model.flat_logp(dims)
     for name, chees, seed in (("bench.py HMC", False, 0), ("bench.py ChEES", True, 3)):
         def window(chees=chees):
             return run_hmc(logp, dims.dim, torch.Generator(device=device).manual_seed(9),
@@ -821,12 +835,44 @@ def phase_graphs(counts_df, device):
             lambda out: _digest(out[0].draws),
             lambda out: (_batched_leapfrogs(out[0]), out[1]["hmc_s"]),
             (window, _batched_leapfrogs), ["nb_glm_plain"])
+    _nuts_graphs_row(data, dims, logp, device)
 
 
-def _busy_window(data, dims, likelihood, device, window=None):
-    """The device's busy share over a short run through flat_logp(dims,
-    likelihood), by default HMC (8 chains, 4 + 4 iterations of 8
-    leapfrogs), after one unprofiled run: the CUDA kernels' device time
+def _nuts_graphs_row(data, dims, logp, device):
+    """Phase graphs's NUTS row: phase nuts's model, warm start and chains,
+    cut to warmup 30 and 20 draws (units: batched evaluations)."""
+    import torch
+
+    from ppcseq_tpu_torch.infer.nuts import run_nuts
+
+    box = {}
+
+    def run():
+        res, _, box["nuts_s"] = _nuts_run(data, dims, logp, device, warmup=30, draws=20)
+        return res
+
+    def measure(res):
+        box["start"] = res.draws[0, -1].clone()
+        box["mass"] = torch.as_tensor(res.inv_mass.mean(axis=0), device=device)
+        return res.num_evals, box["nuts_s"]
+
+    def window():  # 3 + 1 transitions from the row's last draw and mass
+        return run_nuts(logp, dims.dim, torch.Generator(device=device).manual_seed(1),
+                        data=data, num_chains=4, num_warmup=3, num_draws=1, max_depth=10,
+                        init_theta=box["start"], init_jitter=0.0, inv_mass_init=box["mass"],
+                        device=device)
+
+    row = _graphs_row("phase nuts NUTS (warmup 30, 20 draws)", run,
+                      lambda res: _digest(res.draws), measure,
+                      (window, lambda res: res.num_evals), ["nb_glm_plain"])
+    print("phase graphs NUTS host launch calls per batched evaluation: " + json.dumps({
+        p: row[p]["window_host_launches_per_unit"] for p in ("eager", "graphs")}), flush=True)
+
+
+def _busy_window(data, dims, likelihood, device):
+    """The device's busy share over a short HMC run through flat_logp(dims,
+    likelihood) (8 chains, 4 + 4 iterations of 8 leapfrogs), after one
+    unprofiled run: the CUDA kernels' device time
     (torch.profiler, CUDA activity only) over the window's wall. The
     likelihood kernels' launches that the device ran in the window
     (profile_advi.kernel_launches) must equal those nb_kernel.LAUNCHES
@@ -844,10 +890,9 @@ def _busy_window(data, dims, likelihood, device, window=None):
     gen = torch.Generator(device=device).manual_seed(2)
     init = nb_model.smart_init(data, dims)
 
-    if window is None:
-        def window():
-            return run_hmc(logp, dims.dim, gen, data=data, num_chains=8, num_warmup=4,
-                           num_draws=4, num_leapfrog=8, init_theta=init, device=device)
+    def window():
+        return run_hmc(logp, dims.dim, gen, data=data, num_chains=8, num_warmup=4,
+                       num_draws=4, num_leapfrog=8, init_theta=init, device=device)
 
     window()
     torch.cuda.synchronize()
@@ -1004,36 +1049,58 @@ def phase_hmc(counts_df, device):
 NUTS_DRAWS = 100  # per chain, as scripts/baseline_cpu.py
 
 
-def phase_nuts(counts_df, device):
-    """NUTS at scripts/baseline_cpu.py's configuration, from the pipeline's
-    ADVI warm start. Returns the launch counts of the run."""
+def _fifteen_model(counts_df, device):
+    """(data, dims, flat_logp(dims)) of bench.py's and phase nuts's model:
+    the bundled cohort's 15 FDR < 0.01 genes + 500 controls, no baseline
+    (K2), float32."""
     import torch
 
-    from ppcseq_tpu_torch.infer.diagnostics import summarize
-    from ppcseq_tpu_torch.infer.nuts import run_nuts
     from ppcseq_tpu_torch.model import nb_model
 
     fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
     md = _bundled_prep(counts_df, fifteen, 500)
     data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
                                        device=device, dtype=torch.float32)
-    logp = nb_model.flat_logp(dims)
+    return data, dims, nb_model.flat_logp(dims)
+
+
+def _nuts_run(data, dims, logp, device, warmup, draws):
+    """Phase nuts's run: the pipeline's ADVI warm start, then run_nuts with 4
+    chains and max_depth 10 from its mean and variances (generator seed 0).
+    Returns (result, ADVI seconds, NUTS seconds)."""
+    import torch
+
+    from ppcseq_tpu_torch.infer.nuts import run_nuts
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = _warm_start(logp, data, dims, gen, device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_nuts(logp, dims.dim, gen, data=data, num_chains=4, num_warmup=warmup,
+                   num_draws=draws, max_depth=10, init_theta=warm.mean,
+                   inv_mass_init=torch.exp(2.0 * warm.log_sd), device=device)
+    torch.cuda.synchronize()
+    return res, t1 - t0, time.perf_counter() - t1
+
+
+def phase_nuts(counts_df, device):
+    """NUTS at scripts/baseline_cpu.py's configuration, from the pipeline's
+    ADVI warm start, through CUDA graphs. Returns the launch counts of the
+    run."""
+    import torch
+
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.infer.diagnostics import summarize
+    from ppcseq_tpu_torch.infer.nuts import run_nuts
+
+    data, dims, logp = _fifteen_model(counts_df, device)
     chains, warmup = 4, 150
-
-    def run():
-        gen = torch.Generator(device=device).manual_seed(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        warm = _warm_start(logp, data, dims, gen, device)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = run_nuts(logp, dims.dim, gen, data=data, num_chains=chains, num_warmup=warmup,
-                       num_draws=NUTS_DRAWS, max_depth=10, init_theta=warm.mean,
-                       inv_mass_init=torch.exp(2.0 * warm.log_sd), device=device)
-        torch.cuda.synchronize()
-        return res, t1 - t0, time.perf_counter() - t1
-
-    (res, advi_s, nuts_s), counts = _run_path("nuts", run, ["nb_glm_plain"])
+    graphs.reset_stats()
+    (res, advi_s, nuts_s), counts = _run_path(
+        "nuts", lambda: _nuts_run(data, dims, logp, device, warmup, NUTS_DRAWS), ["nb_glm_plain"])
+    stats = dict(graphs.STATS)
     DIGESTS["nuts"] = _digest(res.draws[:, :NUTS_TREE_DRAWS])
     sel = torch.as_tensor(np.r_[0:6, 6 + 2 * dims.G: 6 + 2 * dims.G + dims.n_check],
                           device=device)
@@ -1048,6 +1115,10 @@ def phase_nuts(counts_df, device):
                         init_theta=start, init_jitter=0.0, inv_mass_init=adapted,
                         device=device)
 
+    prof, counted = _window_launches(window, lambda out: out.num_evals)
+    if prof["device_busy_share"] is not None and prof["kernel_launches"] != counted:
+        raise AssertionError(f"nuts window: the device ran {prof['kernel_launches']} likelihood "
+                             f"kernels, nb_kernel.LAUNCHES counted {counted}")
     row = dict(config="scripts/baseline_cpu.py", S=dims.S, G=dims.G, D=dims.dim, chains=chains,
                warmup=warmup, draws_per_chain=NUTS_DRAWS, max_depth=10, advi_s=advi_s,
                nuts_s=nuts_s, wall_s=advi_s + nuts_s, draws_per_s=total / (advi_s + nuts_s),
@@ -1056,12 +1127,19 @@ def phase_nuts(counts_df, device):
                lockstep_ratio=res.lockstep_leapfrog / max(res.num_leapfrog, 1),
                batched_evals=res.num_evals, host_syncs=res.host_syncs,
                ms_per_batched_eval=nuts_s / res.num_evals * 1e3, mean_depth=res.mean_depth,
+               replays=stats["replays"], captures=stats["captures"],
+               capture_s=stats["capture_s"], build_launches=stats["build_launches"],
                divergences=int(res.divergences.sum()),
                divergence_frac=float(res.divergences.sum()) / total,
                mean_accept=float(res.accept_prob.mean()), step_size=res.step_size.tolist(),
                rhat_max=diag["rhat_max"], ess_min=diag["ess_min"],
                draws_finite=bool(torch.isfinite(res.draws).all()), launches=counts,
-               **_busy_window(data, dims, "auto", device, window))
+               window_batched_evals=prof["units"], window_wall_ms=prof["wall_ms"],
+               device_busy_share=prof["device_busy_share"],
+               host_launches_per_batched_eval=prof["host_launches_per_unit"],
+               device_kernels_per_batched_eval=prof["device_kernels_per_unit"],
+               window_launches_counted=counted,
+               window_launches_on_device=prof["kernel_launches"])
     print("phase nuts " + json.dumps(row), flush=True)
     if (not row["draws_finite"] or row["divergence_frac"] > 0.02 or not row["rhat_max"] < 1.1):
         raise AssertionError(f"nuts: {row}")
@@ -1089,16 +1167,13 @@ def phase_nuts_tree(counts_df, device):
     from ppcseq_tpu_torch.infer.nuts import run_nuts
     from ppcseq_tpu_torch.model import nb_model, params
 
-    fifteen = sorted(counts_df.loc[counts_df.FDR < 0.01, "symbol"].unique())
-    md = _bundled_prep(counts_df, fifteen, 500)
-    data, dims = nb_model.prepare_data(md.counts, md.X, md.exposure_rate, md.n_check,
-                                       device=device, dtype=torch.float32)
+    data, dims, logp = _fifteen_model(counts_df, device)
 
     def run():
         gen = torch.Generator(device=device).manual_seed(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        warm = _warm_start(nb_model.flat_logp(dims), data, dims, gen, device)
+        warm = _warm_start(logp, data, dims, gen, device)
         res = run_nuts(nb_model.tree_logp(dims), nb_model.smart_init(data, dims, as_tree=True),
                        gen, data=data, dims=dims, num_chains=4, num_warmup=150,
                        num_draws=NUTS_TREE_DRAWS, max_depth=10, init_theta=warm.mean,
@@ -1973,11 +2048,11 @@ def phase_mesh(counts_df, device):
     return k1
 
 
-# The two NUTS paths take most of the run (each batched evaluation is some
-# 250 eager launches, and a leaf ends in a host sync), and phase cli's 50k
-# runs are mostly host work: they run in child processes of this script on
-# the same card, started once phase kernel has taken its device times alone,
-# beside the parent's phases hmc and e2e.
+# The NUTS paths (a host sync per leaf, whose replays leave the card idle
+# while the host decides) and phase cli's 50k runs (mostly host work) run
+# in child processes of this script on the same card, started once phases
+# kernel and graphs have taken their device times alone, beside the
+# parent's phases hmc and e2e.
 E2E_NUTS = "3-gene NUTS approx"
 CHILDREN = ("nuts", "e2e-nuts", "cli", "nuts-tree", "sbc1")
 LATER_CHILD = ("mesh", "cli")  # started when the second has ended
@@ -2025,6 +2100,7 @@ def _start_children():
 
     def start_later():
         children[after][0].wait()
+        _clock(f"child {later} started")
         children[later] = _start_child(later)
 
     thread = threading.Thread(target=start_later, daemon=True)
@@ -2062,13 +2138,13 @@ def main() -> None:
     from ppcseq_tpu_torch.ops import _build, nb_kernel
     from ppcseq_tpu_torch.utils.device import gpu_name_and_power_limit, probe
 
-    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         nb_kernel.build_all()  # built by the parent: loads
         _run_child(sys.argv[2], load_counts(), device)
+        _clock(f"child {sys.argv[2]} done")
         return
     if len(sys.argv) >= 4 and sys.argv[1] == "--mesh-rank":
         _mesh_rank(sys.argv[2], sys.argv[3:])
@@ -2093,15 +2169,20 @@ def main() -> None:
 
     phase_host()
     counts_df = load_counts()
+    _clock("kernel")
     kernel_rows = phase_kernel(counts_df, device)
+    _clock("forms")
     phase_forms(counts_df, device)
+    _clock("graphs")
     phase_graphs(counts_df, device)  # with the card to itself: eager and graph walls
+    _clock("children started")
     children, thread = _start_children()
     try:
         hmc_launches = phase_hmc(counts_df, device)
+        _clock("e2e")
         k1_launches = phase_e2e(counts_df, device)
         phase_dtype_e2e(counts_df, device)
-        print(f"phase parent done in {time.perf_counter() - t_start:.1f} s", flush=True)
+        _clock("parent done")
         k1_launches += _finish_children(children, thread)
         same = DIGESTS["nuts tree"] == DIGESTS["nuts"]
         print(f"phase nuts-tree bitwise equal to phase nuts's first {NUTS_TREE_DRAWS} draws: "
@@ -2122,7 +2203,7 @@ def main() -> None:
             out.close()
     # (a) of phase dtype, with the card to itself again
     kernel_rows += phase_dtype_kernels(counts_df, device)
-    print(f"phase done in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _clock("done")
 
     # each kernel's time at the shape its path gives it: K1 and its float64
     # form the ADVI step (1, 21, 515), K2 and its float64 form the bench HMC

@@ -12,9 +12,11 @@ window's end restarting the dual averaging at the current step size.
 JAX vmaps a per-chain while_loop. Here the chains run in lockstep:
 - the trajectory loop runs over depth while any chain is still building;
 - inside it the subtree loop runs over leaves while any chain is still
-  active in that subtree. Every active chain is at the same leaf index, so
-  the checkpoint slots of a leaf are host integers (`_leaf_to_ckpt`) and the
-  U-turn test over them is one masked tensor op over [chains, slots, D];
+  active in that subtree. Every active chain is at the same leaf index;
+  its checkpoint slot range comes from a device table (`ckpt_table`) at a
+  device leaf counter, and the U-turn test covers all max_depth + 1 slots,
+  masked to that range, as JAX's scan does: one tensor op over [chains,
+  slots, D];
 - each chain keeps its own direction, step size and inverse mass, as
   device tensors;
 - a chain that is done is still evaluated in the batched log density (one
@@ -24,6 +26,19 @@ host sync per leaf and per depth, counted in NUTSResult.host_syncs. Each
 chain's own leapfrogs (`num_leapfrog`) are counted apart from the lockstep
 ones (`lockstep_leapfrog`, leaf steps x chains): their ratio is what the
 lockstep costs.
+
+The transition's state lives in fixed-shape buffers (`_Tree`), and its
+steps (a doubling's begin, a leaf, its end) read and write only them. On
+a CUDA device without a mesh (infer/graphs.py) each step replays a CUDA
+graph (`CapturedTree`: begin, the even leaf, the odd leaf, end, and the
+step-size search's step), the counterpart of the programs JAX compiles in
+_build_nuts_runners; the
+uniforms and momenta are drawn eagerly in the eager order into the
+buffers before the replay that reads them, and the counting stays on the
+host, so a graph run is bitwise the eager run. The capture is cached per
+(density, data structure, chains, D, dtype, device, max_depth), the data an
+operand. On the CPU, under a mesh and inside graphs.disabled() the same
+steps run eagerly.
 
 The log density, the energies and every quantity derived from energy
 differences (multinomial weights, accept statistics, the divergence test)
@@ -42,6 +57,7 @@ statistic crosses chains.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -49,8 +65,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ppcseq_tpu_torch.infer import graphs
 from ppcseq_tpu_torch.infer.hmc import (_SINGLE, GeneratorDraws, LayoutDraws, leapfrog,
-                                        sampler_density, sampler_spec, structured_draws)
+                                        logp_and_grad, sampler_density, sampler_spec,
+                                        structured_draws)
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 MAX_DELTA_ENERGY = 1000.0  # Stan's divergence threshold
@@ -84,6 +102,16 @@ def _leaf_to_ckpt(i: int) -> tuple[int, int]:
     return idx_max - t + 1, idx_max
 
 
+def ckpt_table(max_depth: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi), int64 tensors on `device`: _leaf_to_ckpt(i) of every leaf i
+    of a subtree of at most 2^max_depth leaves (at least WARMUP_RUNS + 1
+    entries: a leaf region's warm-up and capture step its counter from 0)."""
+    n = max(1 << max_depth, graphs.WARMUP_RUNS + 1)
+    lo, hi = zip(*(_leaf_to_ckpt(i) for i in range(n)))
+    return (torch.tensor(lo, dtype=torch.int64, device=device),
+            torch.tensor(hi, dtype=torch.int64, device=device))
+
+
 def _inf_for_nan(delta):
     return torch.nan_to_num(delta, nan=math.inf, posinf=math.inf, neginf=-math.inf)
 
@@ -91,6 +119,13 @@ def _inf_for_nan(delta):
 def _where(mask, a, b):
     """Per-chain select: mask [chains] against [chains] or [chains, ...]."""
     return torch.where(mask.view(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _assign(bufs: dict, **new) -> None:
+    """Copy each new value into its buffer (all computed before the first
+    copy, so a value may read any buffer)."""
+    for k, v in new.items():
+        bufs[k].copy_(v)
 
 
 class _Counters:
@@ -112,145 +147,261 @@ class _Counters:
         return self.layout.any(mask)
 
 
-def _build_subtree(grad_fn, z0, r0, g0, eps_signed, inv_mass, depth, energy0, active,
-                   max_depth, draws, counters):
-    """Up to 2^depth leapfrogs from (z0, r0, g0) for the chains in `active`,
-    each stopping at its own U-turn or divergence (nuts.py:110-178).
-    Returns a dict of per-chain results: the end point (z, r, g), the
-    multinomial proposal (z_prop, logp_prop, grad_prop) and its log weight,
-    r_sum, turning, diverging, sum_accept and i (the chain's own leaves)."""
-    C, D = z0.shape
-    kw64 = dict(dtype=F64, device=z0.device)
-    z, r, g = z0, r0, g0
-    z_prop, g_prop = z0, g0
-    logp_prop = torch.full((C,), -math.inf, **kw64)
-    log_weight = torch.full((C,), -math.inf, **kw64)
-    r_sum = torch.zeros_like(r0)
-    turning = torch.zeros(C, dtype=torch.bool, device=z0.device)
-    diverging = torch.zeros_like(turning)
-    sum_accept = torch.zeros((C,), **kw64)
-    steps = torch.zeros(C, dtype=torch.int64, device=z0.device)
-    r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=r0.dtype, device=z0.device)
-    r_sum_ckpts = torch.zeros_like(r_ckpts)
+class _Tree:
+    """One lockstep NUTS transition of every chain in fixed-shape buffers:
+    JAX's _TrajCarry (`traj`, nuts.py:181-198) and _SubtreeCarry (`sub`,
+    :92-107) per chain, the transition's inputs (inverse mass, step size,
+    initial energy) and the uniforms `u` that the steps read. A transition
+    is `start`, then per doubling the steps "begin", a leaf per tree leaf
+    ("even" or "odd", by the leaf's parity) and "end" (`steps`, driven by
+    _nuts_transition); the run's step-size search is `start_search` and
+    eight "search" steps (_find_eps). A step reads and writes only these buffers and reads
+    no host value that changes between its calls: the leaf counter is a
+    device tensor, and a leaf reads its checkpoint slot range from the
+    device table `ckpt` at it. So a replay of a step's capture
+    (CapturedTree) runs the eager step's operations on the same shapes."""
 
-    layout = counters.layout
-    for i in range(1 << depth):
-        m = active & ~turning & ~diverging
-        # at leaf 0, m is `active`, which the caller found non-empty
-        if i > 0 and not counters.any(m):
-            break
-        z1, r1, g1, lp1 = leapfrog(z, r, g, eps_signed, inv_mass, grad_fn)
-        counters.evals += 1
-        counters.leaf_steps += 1
-        # the leaf's dot products, in one reduction: its kinetic energy and,
-        # at an odd leaf, the U-turn tests against its checkpoints
-        r_sum1 = r_sum + r1
-        lo, hi = _leaf_to_ckpt(i)
-        if i % 2 == 0:
-            (kin,) = layout.sums([r1 * (inv_mass * r1)])
+    def __init__(self, grad_fn, z, max_depth: int, layout=_SINGLE):
+        C, D = z.shape
+        K = max_depth + 1
+        dev = z.device
+        kw = dict(dtype=z.dtype, device=dev)
+
+        def f64():
+            return torch.zeros(C, dtype=F64, device=dev)
+
+        def flags():
+            return torch.zeros(C, dtype=torch.bool, device=dev)
+
+        def counts():
+            return torch.zeros(C, dtype=torch.int64, device=dev)
+
+        self.grad_fn, self.layout, self.max_depth = grad_fn, layout, max_depth
+        self.inv_mass = torch.ones((C, D), **kw)
+        self.eps = torch.zeros((C, 1), **kw)
+        self.energy0 = f64()
+        self.u = {what: torch.zeros(C, **kw) for what in ("direction", "leaf", "merge")}
+        self.ckpt = ckpt_table(max_depth, dev)
+        self.slots = torch.arange(K, device=dev)
+        # the first z (the run's start) makes a capture's warm-up evaluate there
+        self.traj = {k: z.clone() for k in ("zl", "zr", "z_prop")}
+        self.traj.update({k: torch.zeros_like(z) for k in ("rl", "rr", "gl", "gr", "g_prop",
+                                                           "r_sum")})
+        self.traj.update(logp_prop=f64(), log_weight=f64(), sum_accept=f64(), turning=flags(),
+                         diverging=flags(), building=flags(), depth=counts(), num_steps=counts())
+        self.sub = {k: z.clone() for k in ("z", "z_prop")}
+        self.sub.update({k: torch.zeros_like(z) for k in ("r", "g", "g_prop", "r_sum")})
+        self.sub.update(logp_prop=f64(), log_weight=f64(), sum_accept=f64(), turning=flags(),
+                        diverging=flags(), go_right=flags(), active=flags(), live=flags(),
+                        steps=counts(), eps=torch.zeros((C, 1), **kw),
+                        leaf=torch.zeros(1, dtype=torch.int64, device=dev),
+                        r_ckpts=torch.zeros((C, K, D), **kw),
+                        r_sum_ckpts=torch.zeros((C, K, D), **kw))
+        self.steps = {"begin": self.begin, "even": functools.partial(self.leaf, False),
+                      "odd": functools.partial(self.leaf, True), "end": self.end,
+                      "search": self.search}
+
+    def start_search(self, z, logp, grad, inv_mass, r):
+        """The step-size search's start (nuts.py:119-131): z, its gradient
+        and momenta r in the trajectory's left end, their energy, and the
+        step size 0.1 for every chain."""
+        self.inv_mass.copy_(inv_mass)
+        _assign(self.traj, zl=z, rl=r, gl=grad)
+        self.energy0.copy_(_energy(logp, r, self.inv_mass, self.layout))
+        self.eps.fill_(0.1)
+
+    def search(self):
+        """One step of the search: a leapfrog of each chain's step size from
+        the start, the step doubled where the energy error is below
+        log(1 / 0.8) (a first-step accept above 0.8), halved elsewhere."""
+        t = self.traj
+        _, r1, _, lp1 = leapfrog(t["zl"], t["rl"], t["gl"], self.eps, self.inv_mass, self.grad_fn)
+        delta = torch.nan_to_num(self.energy0 - _energy(lp1, r1, self.inv_mass, self.layout),
+                                 nan=-math.inf, posinf=math.inf, neginf=-math.inf)
+        self.eps.copy_(torch.where(delta.view(-1, 1) > math.log(0.8), self.eps * 2.0,
+                                   self.eps * 0.5))
+
+    def start(self, z, logp, grad, eps, inv_mass, r0):
+        """A transition's inputs and JAX's trajectory init (nuts.py:203-219)
+        from momenta r0."""
+        self.inv_mass.copy_(inv_mass)
+        self.eps.copy_(eps.to(z.dtype).view(-1, 1))
+        self.energy0.copy_(_energy(logp, r0, self.inv_mass, self.layout))
+        t = self.traj
+        _assign(t, zl=z, zr=z, z_prop=z, rl=r0, rr=r0, r_sum=r0, gl=grad, gr=grad, g_prop=grad,
+                logp_prop=logp)
+        for k in ("log_weight", "sum_accept", "turning", "diverging", "depth", "num_steps"):
+            t[k].zero_()  # log_weight 0: the initial point's exp(-(H0 - H0))
+        t["building"].fill_(True)
+
+    def begin(self):
+        """A doubling's subtree from the trajectory's end that the direction
+        uniform picks: the signed step and JAX's _SubtreeCarry init
+        (nuts.py:225-233, 167-177), its checkpoints zero, for the chains
+        still building (`active`)."""
+        t, s = self.traj, self.sub
+        go_right = self.u["direction"] < 0.5
+        z0 = _where(go_right, t["zr"], t["zl"])
+        g0 = _where(go_right, t["gr"], t["gl"])
+        _assign(s, go_right=go_right, active=t["building"], live=t["building"],
+                eps=torch.where(go_right.view(-1, 1), self.eps, -self.eps), z=z0,
+                r=_where(go_right, t["rr"], t["rl"]), g=g0, z_prop=z0, g_prop=g0)
+        s["logp_prop"].fill_(-math.inf)
+        s["log_weight"].fill_(-math.inf)
+        for k in ("r_sum", "sum_accept", "turning", "diverging", "steps", "leaf", "r_ckpts",
+                  "r_sum_ckpts"):
+            s[k].zero_()
+
+    def leaf(self, odd: bool):
+        """One batched leapfrog and JAX's subtree body (nuts.py:118-165) for
+        the chains still building the subtree (m); no other chain's state
+        changes. The leaf's dot products are one reduction: its kinetic
+        energy and, at an odd leaf, the U-turn tests against every one of
+        the max_depth + 1 checkpoint slots, counted where lo <= j <= hi
+        (JAX's masked scan). An even leaf writes slot hi, a one-hot select.
+        (lo, hi) come from the device table at the leaf counter, which the
+        leaf advances; `live` is m after the leaf, what the host reads."""
+        s, inv_mass = self.sub, self.inv_mass
+        m = s["active"] & ~s["turning"] & ~s["diverging"]
+        z1, r1, g1, lp1 = leapfrog(s["z"], s["r"], s["g"], s["eps"], inv_mass, self.grad_fn)
+        r_sum1 = s["r_sum"] + r1
+        lo, hi = (torch.index_select(t, 0, s["leaf"]) for t in self.ckpt)
+        quad = r1 * (inv_mass * r1)
+        ckpts = {}
+        if odd:
+            rj = s["r_ckpts"]
+            block_sum = r_sum1[:, None, :] - s["r_sum_ckpts"] + rj
+            kin, to_first, to_last = self.layout.sums(
+                [quad, *_turning_products(block_sum, rj, r1[:, None, :], inv_mass[:, None, :])])
+            in_range = (self.slots >= lo) & (self.slots <= hi)
+            turned = torch.any(((to_first <= 0) | (to_last <= 0)) & in_range, dim=1)
         else:
-            rj = r_ckpts[:, lo:hi + 1]
-            block_sum = r_sum1[:, None, :] - r_sum_ckpts[:, lo:hi + 1] + rj
-            im = inv_mass[:, None, :]
-            kin, to_first, to_last = layout.sums(
-                [r1 * (inv_mass * r1), *_turning_products(block_sum, rj, r1[:, None, :], im)])
-        delta = _inf_for_nan((-lp1.to(F64) + 0.5 * kin) - energy0)
+            (kin,) = self.layout.sums([quad])
+            write = (m[:, None] & (self.slots == hi))[:, :, None]
+            ckpts = dict(r_ckpts=torch.where(write, r1[:, None, :], s["r_ckpts"]),
+                         r_sum_ckpts=torch.where(write, r_sum1[:, None, :], s["r_sum_ckpts"]))
+            turned = torch.zeros_like(m)
+        delta = _inf_for_nan((-lp1.to(F64) + 0.5 * kin) - self.energy0)
         log_w = -delta
         accept = torch.exp(log_w).clamp_(max=1.0)
-        new_total = torch.logaddexp(log_weight, log_w)
-        take = (draws.uniform(C, "leaf") < torch.exp(log_w - new_total)) & m
-        z_prop = _where(take, z1, z_prop)
-        logp_prop = torch.where(take, lp1, logp_prop)
-        g_prop = _where(take, g1, g_prop)
+        new_total = torch.logaddexp(s["log_weight"], log_w)
+        take = (self.u["leaf"] < torch.exp(log_w - new_total)) & m
+        turning = torch.where(m, turned, s["turning"])
+        diverging = torch.where(m, delta > MAX_DELTA_ENERGY, s["diverging"])
+        _assign(s, z_prop=_where(take, z1, s["z_prop"]),
+                logp_prop=torch.where(take, lp1, s["logp_prop"]),
+                g_prop=_where(take, g1, s["g_prop"]),
+                z=_where(m, z1, s["z"]), r=_where(m, r1, s["r"]), g=_where(m, g1, s["g"]),
+                log_weight=torch.where(m, new_total, s["log_weight"]),
+                r_sum=_where(m, r_sum1, s["r_sum"]), turning=turning, diverging=diverging,
+                sum_accept=torch.where(m, s["sum_accept"] + accept, s["sum_accept"]),
+                steps=s["steps"] + m, leaf=s["leaf"] + 1,
+                live=s["active"] & ~turning & ~diverging, **ckpts)
 
-        if i % 2 == 0:
-            mc = m.view(C, 1)
-            r_ckpts[:, hi] = torch.where(mc, r1, r_ckpts[:, hi])
-            r_sum_ckpts[:, hi] = torch.where(mc, r_sum1, r_sum_ckpts[:, hi])
-            turned = torch.zeros_like(turning)
-        else:
-            turned = torch.any((to_first <= 0) | (to_last <= 0), dim=1)
+    def end(self):
+        """The subtree's merge into the trajectory (biased progressive
+        sampling, Stan/Betancourt) and the trajectory's U-turn test
+        (nuts.py:236-263), for the chains that were building; `building`
+        is then what the host reads before the next doubling."""
+        t, s, b = self.traj, self.sub, self.traj["building"]
+        right, left = b & s["go_right"], b & ~s["go_right"]
+        ends = {}
+        for k in "zrg":
+            ends[k + "l"] = _where(left, s[k], t[k + "l"])
+            ends[k + "r"] = _where(right, s[k], t[k + "r"])
+        p_new = torch.clamp(torch.exp(s["log_weight"] - t["log_weight"]), max=1.0)
+        take = (self.u["merge"] < p_new) & ~s["turning"] & ~s["diverging"] & b
+        r_sum_new = t["r_sum"] + s["r_sum"]
+        turned = s["turning"] | _is_turning(r_sum_new, ends["rl"], ends["rr"], self.inv_mass,
+                                            self.layout)
+        turning = torch.where(b, turned, t["turning"])
+        diverging = torch.where(b, s["diverging"], t["diverging"])
+        _assign(t, **ends, z_prop=_where(take, s["z_prop"], t["z_prop"]),
+                logp_prop=torch.where(take, s["logp_prop"], t["logp_prop"]),
+                g_prop=_where(take, s["g_prop"], t["g_prop"]),
+                r_sum=_where(b, r_sum_new, t["r_sum"]), turning=turning, diverging=diverging,
+                log_weight=torch.where(b, torch.logaddexp(t["log_weight"], s["log_weight"]),
+                                       t["log_weight"]),
+                sum_accept=torch.where(b, t["sum_accept"] + s["sum_accept"], t["sum_accept"]),
+                num_steps=t["num_steps"] + torch.where(b, s["steps"], 0),
+                depth=t["depth"] + b.to(torch.int64), building=~turning & ~diverging)
 
-        z, r, g = _where(m, z1, z), _where(m, r1, r), _where(m, g1, g)
-        log_weight = torch.where(m, new_total, log_weight)
-        r_sum = _where(m, r_sum1, r_sum)
-        turning = torch.where(m, turned, turning)
-        diverging = torch.where(m, delta > MAX_DELTA_ENERGY, diverging)
-        sum_accept = torch.where(m, sum_accept + accept, sum_accept)
-        steps += m
-    return dict(z=z, r=r, g=g, z_prop=z_prop, logp_prop=logp_prop, grad_prop=g_prop,
-                log_weight=log_weight, r_sum=r_sum, turning=turning, diverging=diverging,
-                sum_accept=sum_accept, i=steps)
+    def result(self):
+        """(z, logp, grad, stats) of the transition, copied out of the
+        buffers; stats accept_prob, diverging, num_steps and depth, each
+        [chains]."""
+        t = self.traj
+        stats = {"accept_prob": t["sum_accept"] / torch.clamp(t["num_steps"], min=1),
+                 "diverging": t["diverging"].clone(), "num_steps": t["num_steps"].clone(),
+                 "depth": t["depth"].clone()}
+        return t["z_prop"].clone(), t["logp_prop"].clone(), t["g_prop"].clone(), stats
 
 
-def _nuts_transition(grad_fn, z, logp, grad, eps, inv_mass, max_depth, draws, counters=None):
+class CapturedTree(_Tree):
+    """_Tree whose steps replay CUDA graphs (graphs.Region): "begin", one
+    leaf per parity, "end" and the step-size search's step, each captured
+    once; the counterpart of JAX's jit of its NUTS runners
+    (_build_nuts_runners). The density reads a static copy of the run's
+    data, which `load` refills."""
+
+    def __init__(self, log_density, data, z, max_depth: int):
+        self.data = graphs.static_operand(data)
+        super().__init__(functools.partial(logp_and_grad, log_density, data=self.data), z,
+                         max_depth)
+        replays = {}
+        for name, fn in self.steps.items():
+            self.sub["leaf"].zero_()  # a capture's runs stay inside ckpt_table
+            replays[name] = graphs.Region(fn, z.device, f"NUTS {name}").replay
+        self.steps = replays
+
+    def load(self, data):
+        if data is not None:
+            graphs.load_operand(self.data, data)
+
+
+def _transition_tree(log_density, data, grad_fn, z, max_depth, layout, device):
+    """The run's _Tree: captured on the card without a mesh (cached,
+    graphs.cached), else eager."""
+    if layout is not _SINGLE or not graphs.enabled(device):
+        return _Tree(grad_fn, z, max_depth, layout)
+    key = (log_density, graphs.operand_key(data), tuple(z.shape), z.dtype, z.device, max_depth)
+    tree = graphs.cached("nuts", key, lambda: CapturedTree(log_density, data, z, max_depth))
+    tree.load(data)
+    return tree
+
+
+def _nuts_transition(grad_fn, z, logp, grad, eps, inv_mass, max_depth, draws, counters=None,
+                     tree=None):
     """One NUTS draw for every chain (nuts.py:201-275): z[chains, D],
     logp[chains] (float64), grad[chains, D], eps[chains], inv_mass[chains, D].
     Returns (z, logp, grad, stats) with stats accept_prob, diverging,
-    num_steps and depth, each [chains]."""
+    num_steps and depth, each [chains]. `tree` (a _Tree of these shapes and
+    max_depth; a new eager one by default) holds the state and runs the
+    steps; the host draws every random number in the eager order into its
+    buffers, reads one decision per doubling and per leaf, and counts."""
     counters = counters or _Counters()
-    layout = counters.layout
+    tree = tree or _Tree(grad_fn, z, max_depth, counters.layout)
     C = z.shape[0]
-    dev = z.device
-    r0 = draws.momentum(z.shape) / torch.sqrt(inv_mass)
-    energy0 = _energy(logp, r0, inv_mass, layout)
-    eps_col = eps.to(z.dtype).view(C, 1)
-
-    zl, rl, gl = z, r0, grad
-    zr, rr, gr = z, r0, grad
-    z_prop, logp_prop, g_prop = z, logp.to(F64), grad
-    depth = torch.zeros(C, dtype=torch.int64, device=dev)
-    log_weight = torch.zeros(C, dtype=F64, device=dev)  # the initial point: exp(-(H0 - H0))
-    r_sum = r0
-    turning = torch.zeros(C, dtype=torch.bool, device=dev)
-    diverging = torch.zeros_like(turning)
-    sum_accept = torch.zeros(C, dtype=F64, device=dev)
-    num_steps = torch.zeros(C, dtype=torch.int64, device=dev)
-
-    for d in range(max_depth):
-        building = ~turning & ~diverging
-        if not counters.any(building):
+    tree.start(z, logp, grad, eps, inv_mass, draws.momentum(z.shape) / torch.sqrt(inv_mass))
+    steps = tree.steps
+    for d in range(tree.max_depth):
+        if not counters.any(tree.traj["building"]):
             break
-        go_right = draws.uniform(C, "direction") < 0.5
-        eps_signed = torch.where(go_right.view(C, 1), eps_col, -eps_col)
-        sub = _build_subtree(grad_fn, _where(go_right, zr, zl), _where(go_right, rr, rl),
-                             _where(go_right, gr, gl), eps_signed, inv_mass, d, energy0,
-                             building, max_depth, draws, counters)
-        right = building & go_right
-        left = building & ~go_right
-        zl, rl, gl = (_where(left, sub["z"], zl), _where(left, sub["r"], rl),
-                      _where(left, sub["g"], gl))
-        zr, rr, gr = (_where(right, sub["z"], zr), _where(right, sub["r"], rr),
-                      _where(right, sub["g"], gr))
-
-        # biased progressive sampling across the doubling (Stan/Betancourt)
-        p_new = torch.clamp(torch.exp(sub["log_weight"] - log_weight), max=1.0)
-        take = ((draws.uniform(C, "merge") < p_new) & ~sub["turning"] & ~sub["diverging"]
-                & building)
-        z_prop = _where(take, sub["z_prop"], z_prop)
-        logp_prop = torch.where(take, sub["logp_prop"], logp_prop)
-        g_prop = _where(take, sub["grad_prop"], g_prop)
-
-        r_sum_new = r_sum + sub["r_sum"]
-        turned = sub["turning"] | _is_turning(r_sum_new, rl, rr, inv_mass, layout)
-        r_sum = _where(building, r_sum_new, r_sum)
-        turning = torch.where(building, turned, turning)
-        diverging = torch.where(building, sub["diverging"], diverging)
-        log_weight = torch.where(building, torch.logaddexp(log_weight, sub["log_weight"]),
-                                 log_weight)
-        sum_accept = torch.where(building, sum_accept + sub["sum_accept"], sum_accept)
-        num_steps = num_steps + torch.where(building, sub["i"], 0)
-        depth = depth + building.to(depth.dtype)
-
+        tree.u["direction"].copy_(draws.uniform(C, "direction"))
+        steps["begin"]()
+        for i in range(1 << d):
+            # at leaf 0 every chain of `active` builds: the check above
+            if i > 0 and not counters.any(tree.sub["live"]):
+                break
+            tree.u["leaf"].copy_(draws.uniform(C, "leaf"))
+            steps["odd" if i % 2 else "even"]()
+            counters.evals += 1
+            counters.leaf_steps += 1
+        tree.u["merge"].copy_(draws.uniform(C, "merge"))
+        steps["end"]()
     counters.transitions += C
-    counters.depth_sum = counters.depth_sum + depth.sum()
-    stats = {
-        "accept_prob": sum_accept / torch.clamp(num_steps, min=1),
-        "diverging": diverging,
-        "num_steps": num_steps,
-        "depth": depth,
-    }
-    return z_prop, logp_prop, g_prop, stats
+    counters.depth_sum = counters.depth_sum + tree.traj["depth"].sum()
+    return tree.result()
 
 
 # ----------------------------------------------------------------------------
@@ -333,22 +484,16 @@ def build_warmup_schedule(num_warmup, init_buffer=75, term_buffer=50, base_windo
     return ends, init_buffer, term_buffer
 
 
-def _find_eps(grad_fn, z, lp, g, mass0, draws, counters):
+def _find_eps(tree, z, lp, g, mass0, draws, counters):
     """The reasonable-epsilon search of nuts.py:407-420, per chain: eight
     doublings or halvings from 0.1 towards a first-step accept of 0.8, one
-    momentum draw for all eight; clipped to [1e-6, 10]."""
-    C = z.shape[0]
-    r = draws.momentum(z.shape) / torch.sqrt(mass0)
-    e0 = _energy(lp, r, mass0, counters.layout)
-    eps = torch.full((C,), 0.1, dtype=z.dtype, device=z.device)
+    momentum draw for all eight, each a step of `tree`; clipped to [1e-6,
+    10]."""
+    tree.start_search(z, lp, g, mass0, draws.momentum(z.shape) / torch.sqrt(mass0))
     for _ in range(8):
-        _, r1, _, lp1 = leapfrog(z, r, g, eps.view(C, 1), mass0, grad_fn)
+        tree.steps["search"]()
         counters.evals += 1
-        delta = torch.nan_to_num(e0 - _energy(lp1, r1, mass0, counters.layout), nan=-math.inf,
-                                 posinf=math.inf,
-                                 neginf=-math.inf)
-        eps = torch.where(delta > math.log(0.8), eps * 2.0, eps * 0.5)
-    return torch.clamp(eps, 1e-6, 10.0)
+    return torch.clamp(tree.eps.view(-1), 1e-6, 10.0)
 
 
 @dataclass
@@ -420,8 +565,8 @@ def run_nuts(
     device = resolve_device(device)
     D = spec.dim
     kw = dict(device=device, dtype=dtype)
-    layout, grad_fn = sampler_density(spec.bind(log_density), data, mesh, dims, device,
-                                      "run_nuts")
+    density = spec.bind(log_density)
+    layout, grad_fn = sampler_density(density, data, mesh, dims, device, "run_nuts")
     shard = layout.genes
     if layout is _SINGLE:
         draws = GeneratorDraws(generator, device, dtype)
@@ -440,19 +585,20 @@ def run_nuts(
     inv_mass = mass0.expand(n_local, d_local).contiguous()
 
     counters = _Counters(layout)
+    tree = _transition_tree(density, data, grad_fn, z, max_depth, layout, device)
     lp, g = grad_fn(z)
     counters.evals += 1
     steps = torch.zeros(n_local, dtype=torch.int64, device=device)  # each chain's leapfrogs
 
     # ---- warmup (nuts.py:401-456) ----
     schedule, metric_start, term_buffer = build_warmup_schedule(num_warmup)
-    eps0 = _find_eps(grad_fn, z, lp, g, inv_mass, draws, counters)
+    eps0 = _find_eps(tree, z, lp, g, inv_mass, draws, counters)
     da = _da_init(eps0)
     wf = _welford_init(z)
     for i in range(num_warmup):
         eps = torch.exp(da.log_eps)
         z, lp, g, stats = _nuts_transition(grad_fn, z, lp, g, eps, inv_mass, max_depth, draws,
-                                           counters)
+                                           counters, tree)
         steps = steps + stats["num_steps"]
         da = _da_update(da, stats["accept_prob"], target_accept)
         if metric_start <= i < num_warmup - term_buffer:
@@ -468,7 +614,7 @@ def run_nuts(
     accepts, divs = [], []
     for k in range(num_draws):
         z, lp, g, stats = _nuts_transition(grad_fn, z, lp, g, eps, inv_mass, max_depth, draws,
-                                           counters)
+                                           counters, tree)
         out[k] = z
         accepts.append(stats["accept_prob"])
         divs.append(stats["diverging"])

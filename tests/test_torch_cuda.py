@@ -728,9 +728,10 @@ def _fast_case(dev):
 
 
 def test_short_nuts_run_launches_k1_at_every_gradient():
-    """NUTS through "fast" on the card: one K1 launch per batched gradient
-    evaluation (num_evals), each over all the chains (B = chains), a frozen
-    chain included; the value is float64 and the draws finite."""
+    """NUTS through "fast" on the card, through graphs and eagerly: one K1
+    launch per batched gradient evaluation (num_evals), each over all the
+    chains (B = chains), a frozen chain included; the value is float64 and
+    the draws finite."""
     _needs_card()
     dev = torch.device("cuda")
     data, dims, logp, batches = _fast_case(dev)
@@ -741,8 +742,21 @@ def test_short_nuts_run_launches_k1_at_every_gradient():
     torch.cuda.synchronize()
     assert torch.isfinite(res.draws).all() and res.draws.shape == (3, 10, dims.dim)
     assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": res.num_evals}
-    assert batches == [3] * res.num_evals
+    # the leaves and the step-size search replay captured steps: the
+    # density's Python ran at the first gradient and at the warm-up and
+    # capture of each leaf parity and of the search step; eagerly, at every
+    # gradient
+    assert batches == [3] * (1 + 3 * (graphs.WARMUP_RUNS + 1))
     assert res.lockstep_leapfrog >= res.num_leapfrog > 0
+    batches.clear()
+    nb_kernel.reset_launches()
+    with graphs.disabled():
+        res = run_nuts(logp, dims.dim, torch.Generator(device=dev).manual_seed(0), data=data,
+                       num_chains=3, num_warmup=20, num_draws=10, max_depth=6,
+                       init_theta=nb_model.smart_init(data, dims), device=dev)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": res.num_evals}
+    assert batches == [3] * res.num_evals
 
 
 def test_short_chees_run_launches_k1_at_every_gradient():
@@ -933,6 +947,31 @@ def test_run_hmc_through_graphs_draws_the_eager_draws(chees):
     assert torch.equal(got.draws, eager.draws) and got.step_size == eager.step_size
     assert np.array_equal(got.accept_prob, eager.accept_prob)
     assert got_n == eager_n == {"nb_glm_delta": 1 + got.num_leapfrog // 16}
+
+
+@pytest.mark.parametrize("baseline", [False, True], ids=["K2", "K1"])
+def test_run_nuts_through_graphs_draws_the_eager_draws(baseline):
+    """A short NUTS run through "fast" without a baseline (K2) and with one
+    (K1): the graphs' draws equal the eager run's bit for bit, with the same
+    step sizes, inverse masses, counters and kernel launches (one per
+    batched evaluation)."""
+    _needs_card()
+    dev = torch.device("cuda")
+    data, dims, _, _ = _fast_case(dev)
+    if not baseline:
+        data = nb_model.upload(data.host, dev, torch.float32)
+    out = _eager_and_graphs(lambda: run_nuts(
+        nb_model.flat_logp(dims), dims.dim, torch.Generator(device=dev).manual_seed(0),
+        data=data, num_chains=4, num_warmup=24, num_draws=8, max_depth=8,
+        init_theta=nb_model.smart_init(data, dims), device=dev))
+    (eager, eager_n), (got, got_n) = out["eager"], out["graphs"]
+    assert torch.equal(got.draws, eager.draws)
+    for name in ("accept_prob", "step_size", "inv_mass"):
+        assert np.array_equal(getattr(got, name), getattr(eager, name)), name
+    for name in ("num_leapfrog", "num_evals", "host_syncs", "mean_depth"):
+        assert getattr(got, name) == getattr(eager, name), name
+    kernel = "nb_glm_delta" if baseline else "nb_glm_plain"
+    assert got_n == eager_n == {kernel: got.num_evals}
 
 
 def test_a_failed_capture_raises_and_runs_nothing_eagerly():

@@ -109,9 +109,13 @@ def _jax_logp_grad(z):
     return jnp.where(jnp.isfinite(lp), lp, -jnp.inf), jnp.where(jnp.isfinite(g), g, 0.0)
 
 
-def _torch_logp_grad(z):
+def _torch_logp(x):
     prec, mu = torch.as_tensor(_PREC), torch.as_tensor(_MU)
-    return logp_and_grad(lambda x: -0.5 * torch.einsum("bi,ij,bj->b", x - mu, prec, x - mu), z)
+    return -0.5 * torch.einsum("bi,ij,bj->b", x - mu, prec, x - mu)
+
+
+def _torch_logp_grad(z):
+    return logp_and_grad(_torch_logp, z)
 
 
 _JAX_TRANSITION = jax.jit(jnuts._nuts_transition, static_argnums=(0, 7))
@@ -157,14 +161,16 @@ def _jax_transition(z, eps, inv_mass, key):
                            jnp.asarray(inv_mass), key, 6)
 
 
-def _check_against_jax(z, eps, inv_mass, seeds):
+def _check_against_jax(z, eps, inv_mass, seeds, tree=None):
     """The port's lockstep transition of len(seeds) chains against JAX's
-    transition of each chain alone, max_depth 6, float64."""
+    transition of each chain alone, max_depth 6, float64; `tree(z)` gives
+    the transition's nuts._Tree (a new eager one by default)."""
     keys = [jax.random.PRNGKey(s) for s in seeds]
     zt = _t(z)
     lp, g = _torch_logp_grad(zt)
     got_z, got_lp, _, stats = nuts._nuts_transition(
-        _torch_logp_grad, zt, lp, g, _t(eps), _t(inv_mass), 6, _JaxKeys(keys))
+        _torch_logp_grad, zt, lp, g, _t(eps), _t(inv_mass), 6, _JaxKeys(keys),
+        tree=None if tree is None else tree(zt))
     for c, key in enumerate(keys):
         jz, jlp, _, jst = _jax_transition(z[c], eps[c], inv_mass[c], key)
         np.testing.assert_allclose(got_z[c].numpy(), np.asarray(jz), rtol=1e-10)
