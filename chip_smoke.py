@@ -4,9 +4,11 @@
 
 Phases (each prints lines starting with "phase <name>"; any failure raises,
 so the exit code is non-zero):
-  1. probe   library, compiler and card versions
-  2. build   nvcc-build the three kernel sources from csrc/, in parallel
-             (timed)
+  1. probe   library, compiler and card versions, and whether this torch
+             has a call of its own for CUDA-graph conditional (IF) nodes
+  2. build   nvcc-build the kernel sources from csrc/ (the four likelihood
+             sources and graph_cond.cu, the CUDA graphs' IF nodes), in
+             parallel (timed)
   3. host    the native host runtime (ppcseq_tpu_torch/_native.py: the C++
              pivot and TMM, built with the host compiler; build seconds and
              whether it was built already), then TMM at phase cli's 50,000 x
@@ -58,7 +60,14 @@ so the exit code is non-zero):
              50000) and ELBO (100, 100, 50000)), bench.py's HMC and
              ChEES configurations (ADVI warm start included), and phase
              nuts's NUTS cut to warmup 30 and 20 draws (its warm start, 4
-             chains, max_depth 10). Each row:
+             chains, max_depth 10; through graphs the device decides every
+             leaf and doubling, infer/nuts.CapturedTree: a line of host
+             reads per batched evaluation and per transition, at most one
+             per stride of leaves plus one per transition, then the same
+             run at each stride of NUTS_STRIDES (nuts.STRIDE set to it):
+             its draws and launches the row's, its wall, ms per batched
+             evaluation, captures and a window timed by CUDA events around
+             each graph replay). Each row:
              bitwise_equal (SHA-256 of the fit's mean, log_sd and ELBO
              trace, or of the draws), launches of both runs (each a path,
              equal), and per path the wall, ms per step, per batched
@@ -69,7 +78,11 @@ so the exit code is non-zero):
              the host's launch calls and device kernels per unit, and each
              likelihood kernel's launches as the device ran them
              (profile_advi.kernel_launches), which must equal
-             nb_kernel.LAUNCHES's count of the same window, and row_s,
+             nb_kernel.LAUNCHES's count of the same window (the NUTS
+             row's graph path, whose graphs hold IF nodes, times its
+             window with CUDA events around each replay instead: the
+             profiler miscounts kernels in IF-node bodies and, kept on
+             over them, faults), and row_s,
              the row's own seconds (runs, windows and profiles). A
              mismatch fails the phase.
   5. hmc     jittered HMC at full width: (a) bench.py's configuration
@@ -94,9 +107,12 @@ so the exit code is non-zero):
              divergences <= 2%, rhat_max < 1.1; the row has the chains'
              own and the lockstep leapfrogs, the host syncs, the mean tree
              depth, ms per batched evaluation, graph replays, captures and
-             their seconds, and over a short profiled window the device's
-             busy share, the host's launch calls per batched evaluation
-             and the K2 launches the device ran (equal to those counted).
+             their seconds, the stride (nuts.STRIDE) and the host reads
+             per batched evaluation and per transition (at most one per
+             stride of leaves plus one per transition), and over a short
+             window the graphs' device time and its share of the wall
+             (CUDA events around each replay; no profiler over IF-node
+             graphs).
              nuts-tree: the same run (generator, warm
              start) with the model's tree as run_nuts's prototype
              (smart_init(as_tree=True), dims=, tree_logp(dims)), cut to
@@ -143,14 +159,18 @@ so the exit code is non-zero):
              10,000 checked cells called otherwise than by the unsharded
              command on the same table (run in this process before it);
              (b) genes=1 under NCCL, the 3-gene case on VB; (c) chains=2,
-             the 3-gene case on jittered HMC, divergences <= 2%; (b) and
+             the 3-gene case on jittered HMC, divergences <= 2%, run
+             through graphs (each rank replays its captured leapfrog) and
+             inside graphs.disabled(): both fits' draws bitwise equal,
+             launches equal; (b) and
              (c) give (0, 1, 0); (d) chains=2,genes=2 (4 ranks), the MCMC
              branch on synthetic_tidy(64 genes, 8 samples, 3 checked), each
              rank's gene range printed; (e) run_hmc_tree at genes=2 on
              bench_scale.py's 50,000 x 100 cohort after a gene-sharded ADVI
              warm start, 8 chains, warmup 100, L=32, 25 draws per chain,
              adapted step size >= 1e-2; (f) chains=2, the 3-gene case on
-             ChEES (its chain statistics all-reduced), (0, 1, 0). Every
+             ChEES (its chain statistics all-reduced), (0, 1, 0), graphs
+             against graphs.disabled() as (c). Every
              rank's K1 launches are a path of the `kernels` line.
  10. dtype   the float64 path: identify_outliers(dtype=torch.float64) on
              the card, through the float64 forms of K1 and K2
@@ -181,8 +201,9 @@ five child processes of this script on the same card (`--child nuts`,
 `--child nuts-tree`, `--child sbc1`, `--child e2e-nuts`, `--child cli`),
 started after phases kernel and forms, beside the parent's phases hmc and
 e2e;
-phase mesh runs in a fourth (`--child mesh`), started when the cli child
-has ended (both are mostly host work at 50k). The parent waits for them,
+phase mesh runs in a sixth (`--child mesh`), started when the nuts-tree
+child, the first to end, has ended (the mesh child sets the script's
+length). The parent waits for them,
 echoes their rows and fails if any failed. Each path runs with the kernel
 launch counts of its process set to 0 just before it and read just after;
 every kernel of the path must have launched. Then the card's name and
@@ -685,7 +706,7 @@ def _fit_digest(res) -> str:
     return h.hexdigest()
 
 
-def _graphs_row(name, run, digest, measure, window, expect):
+def _graphs_row(name, run, digest, measure, window, expect, profiled=("eager", "graphs")):
     """One row of phase graphs: run() eagerly (graphs.disabled()) and then
     through CUDA graphs, each a path of the kernels line with its launch
     counts; the digests of the two results must be equal, and so must their
@@ -696,7 +717,10 @@ def _graphs_row(name, run, digest, measure, window, expect):
     busy share and the host's launch calls per unit, and for the launches of
     each likelihood kernel that the device ran in it: they must equal what
     nb_kernel.LAUNCHES counted in the same window, so a graph's replayed
-    launches are seen on the card, not only booked."""
+    launches are seen on the card, not only booked. A path not in
+    `profiled` (graphs of IF nodes: torch.profiler miscounts their kernels
+    and, kept on, faults; PERF.md §6) times its window with CUDA events
+    around each graph replay instead (_timed_window)."""
     import contextlib
 
     import torch
@@ -715,17 +739,22 @@ def _graphs_row(name, run, digest, measure, window, expect):
             stats = dict(graphs.STATS)
             units, seconds = measure(res)
             win_fn, win_units = window
-            prof, counted = _window_launches(win_fn, win_units)
+            if path in profiled:
+                prof, counted = _window_launches(win_fn, win_units)
+                win = dict(window_units=prof["units"], window_wall_ms=prof["wall_ms"],
+                           window_device_busy_share=prof["device_busy_share"],
+                           window_host_launches_per_unit=prof["host_launches_per_unit"],
+                           window_device_kernels_per_unit=prof["device_kernels_per_unit"],
+                           window_launches_counted=counted,
+                           window_launches_on_device=prof["kernel_launches"],
+                           window_profiler_sessions=prof["sessions"])
+            else:
+                win = {"window_" + k: v for k, v in _timed_window(win_fn, win_units).items()}
         digests[path] = digest(res)
         row[path] = dict(
             wall_s=wall, units=units, ms_per_unit=seconds / units * 1e3, launches=counts,
             replays=stats["replays"], captures=stats["captures"], capture_s=stats["capture_s"],
-            build_launches=stats["build_launches"], window_units=prof["units"],
-            window_wall_ms=prof["wall_ms"], window_device_busy_share=prof["device_busy_share"],
-            window_host_launches_per_unit=prof["host_launches_per_unit"],
-            window_device_kernels_per_unit=prof["device_kernels_per_unit"],
-            window_launches_counted=counted,
-            window_launches_on_device=prof["kernel_launches"],
+            build_launches=stats["build_launches"], **win,
             window_captures=graphs.STATS["captures"])
         del res
     graphs.release()
@@ -734,7 +763,7 @@ def _graphs_row(name, run, digest, measure, window, expect):
                launches_seen_on_device=all(
                    row[p]["window_launches_counted"] == row[p]["window_launches_on_device"]
                    and all(row[p]["window_launches_on_device"].get(k, 0) > 0 for k in expect)
-                   for p in ("eager", "graphs")),
+                   for p in profiled),
                speedup=row["eager"]["ms_per_unit"] / row["graphs"]["ms_per_unit"],
                row_s=time.perf_counter() - t_row)
     print("phase graphs " + json.dumps(row), flush=True)
@@ -743,24 +772,75 @@ def _graphs_row(name, run, digest, measure, window, expect):
     return row
 
 
+def _timed_window(fn, units):
+    """fn() with a CUDA event pair around every graph replay (Region.replay)
+    and none of torch.profiler: its units, wall, the replays' device time
+    (each graph's execution span, its gaps between kernels included) and
+    that time's share of the wall, and the likelihood kernels' launches
+    nb_kernel.LAUNCHES counted (zeroed just before). Where the window runs
+    only graphs, the share is the device's share of the wall spent in
+    graphs; the kernels' own time within them (torch.profiler's busy
+    share) is not read."""
+    import torch
+
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.ops import nb_kernel
+
+    spans, replay = [], graphs.Region.replay
+
+    def timed(self, times=1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay(self, times)
+        end.record()
+        spans.append((start, end))
+
+    nb_kernel.reset_launches()
+    graphs.Region.replay = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.Region.replay = replay
+    in_graphs = sum(a.elapsed_time(b) for a, b in spans)
+    return dict(units=units(out) if callable(units) else units, wall_ms=wall * 1e3,
+                replays=len(spans), graphs_device_ms=in_graphs,
+                graphs_device_share=in_graphs / (wall * 1e3),
+                launches_counted={k: v for k, v in nb_kernel.LAUNCHES.items() if v})
+
+
+PROFILER_SESSIONS = 3  # profiled runs of a window at most (_window_launches, _busy_window)
+
+
 def _window_launches(fn, units):
     """(profiled(fn, units), the likelihood kernels' launches that Python
     counted in that window): nb_kernel.LAUNCHES zeroed just before it, plus
     the launches of any capture in it (graphs.STATS["build_launches"]). The
-    profile's kernel_launches are what the device ran; a session that
-    recorded no kernel at all (_device_us) is run once more."""
+    profile's kernel_launches are what the device ran. A session that
+    recorded no kernel at all (_device_us), or fewer or more likelihood
+    kernels than were counted, is run again, up to PROFILER_SESSIONS
+    times: the profiler has dropped records of a window whose launches are
+    fixed (PERF.md §6), while a count that is wrong stays wrong in
+    every session. prof["sessions"] lists each session's records."""
     from ppcseq_tpu_torch.infer import graphs
     from ppcseq_tpu_torch.ops import nb_kernel
     from ppcseq_tpu_torch.utils.profile_advi import profiled
 
-    for _ in range(2):
+    sessions = []
+    for _ in range(PROFILER_SESSIONS):
         nb_kernel.reset_launches()
         graphs.reset_stats()
         prof = profiled(fn, units)
-        counted = _sum_counts(nb_kernel.LAUNCHES, graphs.STATS["build_launches"])
-        if prof["device_busy_share"] is not None:
+        counted = {k: v for k, v in _sum_counts(
+            nb_kernel.LAUNCHES, graphs.STATS["build_launches"]).items() if v}
+        sessions.append(prof["kernel_launches"])
+        if prof["device_busy_share"] is not None and prof["kernel_launches"] == counted:
             break
-    return prof, {k: v for k, v in counted.items() if v}
+    prof["sessions"] = sessions
+    return prof, counted
 
 
 def _sum_counts(a: dict, b: dict) -> dict:
@@ -838,22 +918,44 @@ def phase_graphs(counts_df, device):
     _nuts_graphs_row(data, dims, logp, device)
 
 
+NUTS_STRIDES = (8, 16, 32)  # phase graphs's sweep of nuts.STRIDE
+
+
+def _nuts_reads(res, transitions, stride):
+    """A NUTS run's host reads: per batched evaluation and per transition
+    (on the device-decided path, the strides replayed per transition), and
+    whether they stay within one per stride of leaves plus one per
+    transition."""
+    leaves = res.lockstep_leapfrog // res.draws.shape[0]
+    return dict(stride=stride, transitions=transitions, host_reads=res.host_syncs,
+                host_reads_per_batched_eval=res.host_syncs / res.num_evals,
+                host_reads_per_transition=res.host_syncs / transitions,
+                host_reads_within_bound=res.host_syncs <= leaves / stride + transitions)
+
+
 def _nuts_graphs_row(data, dims, logp, device):
     """Phase graphs's NUTS row: phase nuts's model, warm start and chains,
-    cut to warmup 30 and 20 draws (units: batched evaluations)."""
+    cut to warmup 30 and 20 draws (units: batched evaluations); then the
+    device-decided run at each stride of NUTS_STRIDES: its draws and
+    launches must be the row's, its host reads within one per stride of
+    leaves plus one per transition; its window is timed by CUDA events
+    around each replay (_timed_window)."""
     import torch
 
+    from ppcseq_tpu_torch.infer import graphs, nuts
     from ppcseq_tpu_torch.infer.nuts import run_nuts
+    from ppcseq_tpu_torch.ops import nb_kernel
 
-    box = {}
+    box, warmup, draws = {"reads": []}, 30, 20
 
     def run():
-        res, _, box["nuts_s"] = _nuts_run(data, dims, logp, device, warmup=30, draws=20)
+        res, _, box["nuts_s"] = _nuts_run(data, dims, logp, device, warmup=warmup, draws=draws)
         return res
 
     def measure(res):
         box["start"] = res.draws[0, -1].clone()
         box["mass"] = torch.as_tensor(res.inv_mass.mean(axis=0), device=device)
+        box["reads"].append(_nuts_reads(res, warmup + draws, nuts.STRIDE))
         return res.num_evals, box["nuts_s"]
 
     def window():  # 3 + 1 transitions from the row's last draw and mass
@@ -862,11 +964,43 @@ def _nuts_graphs_row(data, dims, logp, device):
                         init_theta=box["start"], init_jitter=0.0, inv_mass_init=box["mass"],
                         device=device)
 
-    row = _graphs_row("phase nuts NUTS (warmup 30, 20 draws)", run,
+    row = _graphs_row(f"phase nuts NUTS (warmup {warmup}, {draws} draws)", run,
                       lambda res: _digest(res.draws), measure,
-                      (window, lambda res: res.num_evals), ["nb_glm_plain"])
-    print("phase graphs NUTS host launch calls per batched evaluation: " + json.dumps({
-        p: row[p]["window_host_launches_per_unit"] for p in ("eager", "graphs")}), flush=True)
+                      (window, lambda res: res.num_evals), ["nb_glm_plain"], profiled=("eager",))
+    reads = dict(zip(("eager", "graphs"), box["reads"]))
+    reads["eager"].pop("stride")
+    print("phase graphs NUTS host reads: " + json.dumps(reads), flush=True)
+    if not reads["graphs"]["host_reads_within_bound"]:
+        raise AssertionError(f"graphs NUTS: more host reads than strides: {reads}")
+    default = nuts.STRIDE
+    try:
+        for stride in NUTS_STRIDES:
+            nuts.STRIDE = stride
+            graphs.reset_stats()
+            nb_kernel.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            wall = time.perf_counter() - t0
+            stats, launches = dict(graphs.STATS), dict(nb_kernel.LAUNCHES)
+            win = _timed_window(window, lambda out: out.num_evals)
+            sweep = dict(_nuts_reads(res, warmup + draws, stride), wall_s=wall,
+                         nuts_s=box["nuts_s"],
+                         batched_evals=res.num_evals,
+                         ms_per_batched_eval=box["nuts_s"] / res.num_evals * 1e3,
+                         captures=stats["captures"], capture_s=stats["capture_s"],
+                         replays=stats["replays"],
+                         launches_equal=launches == row["graphs"]["launches"],
+                         bitwise_equal=_digest(res.draws) == row["digest"],
+                         **{"window_" + k: v for k, v in win.items()})
+            print("phase graphs NUTS stride " + json.dumps(sweep), flush=True)
+            if not (sweep["bitwise_equal"] and sweep["launches_equal"]
+                    and sweep["host_reads_within_bound"]):
+                raise AssertionError(f"graphs NUTS stride {stride}: {sweep}")
+            del res
+    finally:
+        nuts.STRIDE = default
+        graphs.release()
 
 
 def _busy_window(data, dims, likelihood, device):
@@ -895,19 +1029,25 @@ def _busy_window(data, dims, likelihood, device):
                        num_draws=4, num_leapfrog=8, init_theta=init, device=device)
 
     window()
-    torch.cuda.synchronize()
-    nb_kernel.reset_launches()
-    graphs.reset_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = window()
+    sessions = []
+    for _ in range(PROFILER_SESSIONS):  # as _window_launches
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    counted = {k: v for k, v in _sum_counts(nb_kernel.LAUNCHES,
-                                            graphs.STATS["build_launches"]).items() if v}
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA") * 1e-6
-    observed = kernel_launches(events)
+        nb_kernel.reset_launches()
+        graphs.reset_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = window()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counted = {k: v for k, v in _sum_counts(nb_kernel.LAUNCHES,
+                                                graphs.STATS["build_launches"]).items() if v}
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type.name == "CUDA") * 1e-6
+        observed = kernel_launches(events)
+        sessions.append(observed)
+        if busy > 0 and observed == counted:
+            break
     if busy <= 0:  # the session recorded no kernel (_device_us): not measured
         print("chip_smoke: torch.profiler recorded no device time in the busy window",
               file=sys.stderr, flush=True)
@@ -917,7 +1057,8 @@ def _busy_window(data, dims, likelihood, device):
                              f"kernels, nb_kernel.LAUNCHES counted {counted}")
     return dict(window_leapfrogs=res.num_leapfrog, window_wall_s=wall, window_device_s=busy,
                 device_busy_share=None if busy is None else busy / wall,
-                window_launches_counted=counted, window_launches_on_device=observed)
+                window_launches_counted=counted, window_launches_on_device=observed,
+                window_profiler_sessions=sessions)
 
 
 def _strip_baseline(data):
@@ -1091,7 +1232,7 @@ def phase_nuts(counts_df, device):
     run."""
     import torch
 
-    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.infer import graphs, nuts
     from ppcseq_tpu_torch.infer.diagnostics import summarize
     from ppcseq_tpu_torch.infer.nuts import run_nuts
 
@@ -1115,10 +1256,7 @@ def phase_nuts(counts_df, device):
                         init_theta=start, init_jitter=0.0, inv_mass_init=adapted,
                         device=device)
 
-    prof, counted = _window_launches(window, lambda out: out.num_evals)
-    if prof["device_busy_share"] is not None and prof["kernel_launches"] != counted:
-        raise AssertionError(f"nuts window: the device ran {prof['kernel_launches']} likelihood "
-                             f"kernels, nb_kernel.LAUNCHES counted {counted}")
+    win = _timed_window(window, lambda out: out.num_evals)
     row = dict(config="scripts/baseline_cpu.py", S=dims.S, G=dims.G, D=dims.dim, chains=chains,
                warmup=warmup, draws_per_chain=NUTS_DRAWS, max_depth=10, advi_s=advi_s,
                nuts_s=nuts_s, wall_s=advi_s + nuts_s, draws_per_s=total / (advi_s + nuts_s),
@@ -1126,6 +1264,7 @@ def phase_nuts(counts_df, device):
                lockstep_leapfrog=res.lockstep_leapfrog,
                lockstep_ratio=res.lockstep_leapfrog / max(res.num_leapfrog, 1),
                batched_evals=res.num_evals, host_syncs=res.host_syncs,
+               **_nuts_reads(res, warmup + NUTS_DRAWS, nuts.STRIDE),
                ms_per_batched_eval=nuts_s / res.num_evals * 1e3, mean_depth=res.mean_depth,
                replays=stats["replays"], captures=stats["captures"],
                capture_s=stats["capture_s"], build_launches=stats["build_launches"],
@@ -1134,14 +1273,10 @@ def phase_nuts(counts_df, device):
                mean_accept=float(res.accept_prob.mean()), step_size=res.step_size.tolist(),
                rhat_max=diag["rhat_max"], ess_min=diag["ess_min"],
                draws_finite=bool(torch.isfinite(res.draws).all()), launches=counts,
-               window_batched_evals=prof["units"], window_wall_ms=prof["wall_ms"],
-               device_busy_share=prof["device_busy_share"],
-               host_launches_per_batched_eval=prof["host_launches_per_unit"],
-               device_kernels_per_batched_eval=prof["device_kernels_per_unit"],
-               window_launches_counted=counted,
-               window_launches_on_device=prof["kernel_launches"])
+               **{"window_" + k: v for k, v in win.items()})
     print("phase nuts " + json.dumps(row), flush=True)
-    if (not row["draws_finite"] or row["divergence_frac"] > 0.02 or not row["rhat_max"] < 1.1):
+    if (not row["draws_finite"] or row["divergence_frac"] > 0.02 or not row["rhat_max"] < 1.1
+            or not row["host_reads_within_bound"]):
         raise AssertionError(f"nuts: {row}")
     return counts
 
@@ -1754,12 +1889,20 @@ def _mesh_case_cli(args, device):
     return dict(cli_wall_s=wall, stages_s=stages)
 
 
-def _mesh_case_identify(mesh_shape, names, kw):
+def _mesh_case_identify(mesh_shape, names, kw, against_eager=False):
+    """identify_outliers on a mesh; with against_eager, once through graphs
+    and once inside graphs.disabled(): both fits' draws must be equal bit
+    for bit (SHA-256), with equal launches (the chains-only mesh replays
+    the captured leapfrog, its chain collectives eager)."""
     def case(args, device):
+        import contextlib
+
         import torch
         from torch.distributed.device_mesh import init_device_mesh
 
         from ppcseq_tpu_torch import identify_outliers, load_counts
+        from ppcseq_tpu_torch.infer import graphs
+        from ppcseq_tpu_torch.ops import nb_kernel
         from ppcseq_tpu_torch.utils.synthetic import synthetic_tidy
 
         mesh = init_device_mesh(MESH_DEVICE, mesh_shape, mesh_dim_names=names)
@@ -1772,8 +1915,21 @@ def _mesh_case_identify(mesh_shape, names, kw):
                           abundance="value", significance="PValue", do_check="is_significant",
                           percent_false_positive_genes=1, how_many_negative_controls=50)
         opts = {k: v for k, v in kw.items() if k != "synthetic"}
-        res = identify_outliers(df, mesh=mesh, seed=42, pass_fit=True, device=device,
-                                **common, **opts)
+        by_path, digests, first = {}, {}, None
+        for path in ("graphs", "eager") if against_eager else ("graphs",):
+            before = dict(nb_kernel.LAUNCHES)
+            graphs.reset_stats()
+            with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+                res = identify_outliers(df, mesh=mesh, seed=42, pass_fit=True, device=device,
+                                        **common, **opts)
+            fits = [res.attrs["fit 1"], res.attrs["fit 2"]]
+            digests[path] = [_digest(f.draws) for f in fits if hasattr(f, "draws")]
+            by_path[path] = dict(
+                captures=graphs.STATS["captures"], replays=graphs.STATS["replays"],
+                launches={k: v - before.get(k, 0) for k, v in nb_kernel.LAUNCHES.items()
+                          if v != before.get(k, 0)})
+            first = res if first is None else first
+        res = first
         key = "symbol" if "symbol" in res.columns else "transcript"
         out = dict(calls=dict(zip(map(str, res[key]), map(int, res.tot_deleterious_outliers))))
         fits = [res.attrs["fit 1"], res.attrs["fit 2"]]
@@ -1783,6 +1939,11 @@ def _mesh_case_identify(mesh_shape, names, kw):
                        draws_shape=list(fits[1].draws.shape), genes=fits[1].genes,
                        chains=fits[1].chains,
                        draws_finite=all(bool(torch.isfinite(f.draws).all()) for f in fits))
+        if against_eager:
+            out.update(graphs_against_eager=by_path,
+                       graphs_bitwise_eager=digests["graphs"] == digests["eager"],
+                       graphs_launches_equal=(by_path["graphs"]["launches"]
+                                              == by_path["eager"]["launches"]))
         return out
     return case
 
@@ -1839,12 +2000,13 @@ MESH_CASES = {
     "cli50k": _mesh_case_cli,
     "nccl": _mesh_case_identify((1,), ("genes",), {}),
     "chains": _mesh_case_identify((2,), ("chains",), dict(
-        approximate_posterior_inference=False, mcmc_sampler="hmc")),
+        approximate_posterior_inference=False, mcmc_sampler="hmc"), against_eager=True),
     "2d": _mesh_case_identify((2, 2), ("chains", "genes"), dict(
         approximate_posterior_inference=False, mcmc_sampler="hmc", synthetic=True)),
     "hmc50k": _mesh_case_hmc50k,
     "chees": _mesh_case_identify((2,), ("chains",), dict(
-        approximate_posterior_inference=False, mcmc_sampler="hmc", hmc_adapt_trajectory=True)),
+        approximate_posterior_inference=False, mcmc_sampler="hmc", hmc_adapt_trajectory=True),
+        against_eager=True),
 }
 
 
@@ -2019,7 +2181,9 @@ def phase_mesh(counts_df, device):
             keys = [k for k in ("calls", "divergences", "transitions", "draws_shape", "genes",
                                 "chains", "draws_finite", "step_size", "advi_iterations",
                                 "advi_s", "hmc_s", "draws_per_s", "hmc_draws_per_s",
-                                "leapfrog_steps") if k in recs[0]]
+                                "leapfrog_steps", "graphs_bitwise_eager",
+                                "graphs_launches_equal", "graphs_against_eager")
+                    if k in recs[0]]
             row = dict(run=label, torchrun_wall_s=wall,
                        **_per_rank(recs, "backend", "wall_s", "peak_device_bytes", "k1_shapes",
                                    *keys),
@@ -2036,6 +2200,12 @@ def phase_mesh(counts_df, device):
                     raise AssertionError(f"mesh chains: divergences {r['divergences']}")
                 if not r.get("draws_finite", True):
                     raise AssertionError(f"mesh {case}: non-finite draws")
+                if case in ("chains", "chees") and not (
+                        r["graphs_bitwise_eager"] and r["graphs_launches_equal"]
+                        and r["graphs_against_eager"]["eager"]["captures"] == 0
+                        < r["graphs_against_eager"]["graphs"]["captures"]):
+                    raise AssertionError(f"mesh {case}: the graphs' run is not the eager "
+                                         f"run's: {r['graphs_against_eager']}")
                 if case == "hmc50k" and r["step_size"] < 1e-2:
                     raise AssertionError(f"mesh hmc50k: step size {r['step_size']} < 1e-2")
                 if case in ("nccl", "hmc50k"):
@@ -2048,14 +2218,13 @@ def phase_mesh(counts_df, device):
     return k1
 
 
-# The NUTS paths (a host sync per leaf, whose replays leave the card idle
-# while the host decides) and phase cli's 50k runs (mostly host work) run
-# in child processes of this script on the same card, started once phases
-# kernel and graphs have taken their device times alone, beside the
-# parent's phases hmc and e2e.
+# The NUTS paths and phase cli's 50k runs (mostly host work) run in child
+# processes of this script on the same card, started once phases kernel
+# and graphs have taken their device times alone, beside the parent's
+# phases hmc and e2e.
 E2E_NUTS = "3-gene NUTS approx"
 CHILDREN = ("nuts", "e2e-nuts", "cli", "nuts-tree", "sbc1")
-LATER_CHILD = ("mesh", "cli")  # started when the second has ended
+LATER_CHILD = ("mesh", "nuts-tree")  # started when the second (the first to end) has ended
 CHILD_RESULT = "chip_smoke child result "
 
 
@@ -2135,6 +2304,7 @@ def main() -> None:
         _fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ppcseq_tpu_torch import load_counts
+    from ppcseq_tpu_torch.infer import graphs
     from ppcseq_tpu_torch.ops import _build, nb_kernel
     from ppcseq_tpu_torch.utils.device import gpu_name_and_power_limit, probe
 
@@ -2152,11 +2322,13 @@ def main() -> None:
 
     print("phase probe\n" + probe(), flush=True)
 
+    sources = (*nb_kernel.SOURCES, graphs.COND_SOURCE)
     t0 = time.perf_counter()
+    _build.load_all(sources)
     nb_kernel.build_all()
-    print(f"phase build {len(nb_kernel.SOURCES)} sources in parallel: "
+    print(f"phase build {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for source in nb_kernel.SOURCES:
+    for source in sources:
         info = _build.BUILD_LOG[source]
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", info["log"])]
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", info["log"]))

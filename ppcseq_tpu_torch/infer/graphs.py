@@ -12,11 +12,21 @@ per-stream ticket (ops/nb_kernel._ticket) is allocated there, never inside
 the capture. A capture that fails raises; nothing runs the step eagerly in
 its place.
 
+A region may branch on the device (`when`): a part of it captured as a
+conditional (IF) node runs at a replay only where a device flag holds then,
+as JAX's `lax.while_loop` and `lax.cond` decide on the device. One level of
+such nodes, side by side, each on a flag that the region computes just
+before it. Eagerly the host reads the flag. The port makes the IF nodes
+itself (csrc/graph_cond.cu, through the CUDA runtime): torch 2.11 has no
+Python call for them.
+
 Kernel launch accounting: nb_kernel.LAUNCHES counts launches in Python, so
 a replay would count nothing. A region records the launches of each kernel
 its capture holds and adds them to LAUNCHES at every replay, so a run
 through graphs counts what the same run counts eagerly. The launches of the
-warm-up and of the capture itself go to STATS["build_launches"] instead.
+warm-up and of the capture itself go to STATS["build_launches"] instead. A
+region that branches on the device books nothing itself: its caller counts
+on the device how often each conditional body ran and books that (`book`).
 
 The cache (`cached`) keys an entry by what the caller passes: the density
 function, the static configuration, the shapes, dtype and device. The model
@@ -29,9 +39,9 @@ key drops the old entry and frees its graphs' memory pools. `release()`
 drops every entry (identify_outliers does at its end).
 
 `enabled(device)` says where the samplers capture: on a CUDA device. The
-CPU runs the loops eagerly, and so does every sharded fit (its all-reduce
-goes through gloo, which stages through the host); that choice is made by
-the caller's `layout`, never by catching a failure. `disabled()` runs them
+CPU runs the loops eagerly, and so does every fit whose steps hold a
+collective (gloo stages it through the host); that choice is made by the
+caller's `layout`, never by catching a failure. `disabled()` runs them
 eagerly on the card too: the reference that the card tests and
 chip_smoke.py's phase graphs hold the graphs against, bit for bit.
 """
@@ -51,7 +61,8 @@ WARMUP_RUNS = 2  # eager runs of a region on the side stream before its capture
 STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "build_launches": {}}
 
 _CACHE: dict = {}  # slot -> (key, entry)
-_STREAMS: dict = {}  # device index -> the side stream of warm-ups and captures
+_STREAMS: dict = {}  # (device index, "side" or "body") -> a stream of warm-ups and captures
+_capturing = None  # the CudaCapture whose capture is under way
 _eager = False  # set inside disabled()
 
 
@@ -76,21 +87,62 @@ def disabled():
         _eager = before
 
 
-def _side_stream(device):
+def _side_stream(device, kind="side"):
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    if index not in _STREAMS:
-        _STREAMS[index] = torch.cuda.Stream(device=index)
-    return _STREAMS[index]
+    if (index, kind) not in _STREAMS:
+        _STREAMS[index, kind] = torch.cuda.Stream(device=index)
+    return _STREAMS[index, kind]
+
+
+def _body_stream(device):
+    """The stream that captures the IF nodes' bodies on `device`."""
+    return _side_stream(device, "body")
+
+
+COND_SOURCE = "graph_cond.cu"  # csrc/: the IF nodes' C entries (ops/_build.py builds it)
+_cond = None  # its loaded library
+
+
+def _cond_lib():
+    global _cond
+    if _cond is None:
+        import ctypes
+
+        from ppcseq_tpu_torch.ops import _build
+
+        (lib,) = _build.load_all([COND_SOURCE])
+        lib.graph_if_begin.argtypes = [ctypes.c_void_p] * 3
+        lib.graph_if_end.argtypes = [ctypes.c_void_p]
+        lib.graph_cond_error.argtypes = [ctypes.c_int]
+        lib.graph_cond_error.restype = ctypes.c_char_p
+        _cond = lib
+    return _cond
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: {_cond_lib().graph_cond_error(err).decode()}")
+
+
+def _route(index, pool, begin):
+    """Route the allocations of device `index` that the capture's pool
+    takes: begin(index, pool) in place of the entry that serves it now,
+    without a reference of its own to the pool (the graph holds one)."""
+    torch._C._cuda_endAllocateToPool(index, pool)
+    begin(index, pool)
+    torch._C._cuda_releasePool(index, pool)
 
 
 class CudaCapture:
-    """A torch.cuda.CUDAGraph behind the three calls a Region makes."""
+    """A torch.cuda.CUDAGraph behind the three calls a Region makes, and the
+    IF nodes (`if_node`) of its capture."""
 
     def __init__(self, device, name):
         self.device, self.name = torch.device(device), name
         self.graph = torch.cuda.CUDAGraph()
+        self.pool = torch.cuda.graph_pool_handle()  # the graph's private memory pool
 
     def warmup(self, fn, runs):
         """fn() `runs` times on the side stream, ordered after the work the
@@ -103,17 +155,73 @@ class CudaCapture:
         current.wait_stream(stream)
 
     def capture(self, fn):
+        global _capturing
         try:
-            with torch.cuda.graph(self.graph, stream=_side_stream(self.device)):
-                return fn()
+            with torch.cuda.graph(self.graph, pool=self.pool, stream=_side_stream(self.device)):
+                _capturing = self
+                try:
+                    return fn()
+                finally:
+                    _capturing = None
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of the {self.name} failed: {e}") from e
+
+    def if_node(self, pred, fn):
+        """fn() captured as the body of an IF node on pred (csrc/graph_cond.cu)
+        on a stream of its own. The graph's memory pool serves only its
+        capture stream, so for the body it serves every stream (the body's
+        and the autograd thread's, which runs the body's backward on it),
+        then the capture stream again; the graph holds the pool as ever,
+        and a block serves only the stream it was allocated on. The body's
+        likelihood kernels take the capture stream's ticket."""
+        lib, index = _cond_lib(), self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        parent, body = torch.cuda.current_stream(self.device), _body_stream(self.device)
+        _check(lib.graph_if_begin(parent.cuda_stream, body.cuda_stream, pred.data_ptr()),
+               f"an IF node of the {self.name}")
+        _route(index, self.pool, torch._C._cuda_beginAllocateToPool)
+        try:
+            with torch.cuda.stream(body), nb_kernel.ticket_of(parent):
+                fn()
+        finally:
+            _route(index, self.pool, torch._C._cuda_beginAllocateCurrentStreamToPool)
+            _check(lib.graph_if_end(body.cuda_stream), f"the IF node's body of the {self.name}")
 
     def replay(self):
         self.graph.replay()
 
 
 Capture = CudaCapture  # what a Region captures with (a test may stand a stub in)
+
+
+def when(pred, fn) -> None:
+    """fn() where the one-element bool tensor `pred` holds True. Inside a
+    Region's capture, an IF node of its graph whose body is fn's capture
+    (CudaCapture.if_node): a replay runs the body or skips it by pred's
+    value at that point of the replay. Otherwise (eagerly, on the CPU) the
+    host reads pred. Nothing catches a failure: a failed IF node raises,
+    and so does the capture around it."""
+    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        if _capturing is None:
+            raise RuntimeError("graphs.when under a CUDA graph capture that is not a Region's")
+        _capturing.if_node(pred, fn)
+    elif bool(pred):
+        fn()
+
+
+def launches_of(fn) -> dict:
+    """fn(), and the kernel launches it counted."""
+    before = dict(nb_kernel.LAUNCHES)
+    fn()
+    return _diff(nb_kernel.LAUNCHES, before)
+
+
+def book(launches: dict, times: int) -> None:
+    """Add `times` x `launches` to nb_kernel.LAUNCHES: the launches of a
+    conditional body that the device ran `times` times."""
+    for k, v in launches.items():
+        nb_kernel.LAUNCHES[k] += v * times
 
 
 def _diff(after: dict, before: dict) -> dict:
@@ -124,18 +232,24 @@ class Region:
     """fn() over static tensors, captured once and replayed. fn reads and
     writes only tensors that outlive the capture; `outputs` is what the
     capture returned (static: a replay overwrites it). `launches` holds the
-    kernel launches one replay makes."""
+    kernel launches one replay makes.
 
-    def __init__(self, fn, device, name):
+    `warmup` (default fn) is what runs eagerly before the capture: a region
+    that branches on the device (`when`) warms each of its bodies up
+    itself, since its own eager run may skip them. Such a region passes
+    `books=False`: a replay books no launches (`launches` is empty), its
+    caller books what the device ran."""
+
+    def __init__(self, fn, device, name, warmup=None, books=True):
         launches = nb_kernel.LAUNCHES
         before = dict(launches)
         t0 = time.perf_counter()
         self._graph = Capture(device, name)
         try:
-            self._graph.warmup(fn, WARMUP_RUNS)
+            self._graph.warmup(warmup or fn, WARMUP_RUNS)
             warm = dict(launches)
             self.outputs = self._graph.capture(fn)
-            self.launches = _diff(launches, warm)
+            self.launches = _diff(launches, warm) if books else {}
         finally:
             built = STATS["build_launches"]
             for k, v in _diff(launches, before).items():
@@ -147,8 +261,7 @@ class Region:
     def replay(self, times: int = 1) -> None:
         for _ in range(times):
             self._graph.replay()
-        for k, v in self.launches.items():
-            nb_kernel.LAUNCHES[k] += v * times
+        book(self.launches, times)
         STATS["replays"] += times
 
 

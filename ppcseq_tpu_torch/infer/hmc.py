@@ -30,8 +30,10 @@ buffers; the momentum and accept draws, the energy change and the accept
 stay eager, a handful of launches per draw, so the generators advance as in
 the eager run and no generator lives in a graph. The capture is cached per
 (density, data structure, shapes, dtype, device), the data an operand, so
-the pipeline's passes and its retry ladder replay one capture. On the CPU,
-and under a mesh, the leapfrogs run eagerly, one op at a time. The plain
+the pipeline's passes and its retry ladder replay one capture. Under a
+chains-only mesh each rank replays its own capture over its chains, the
+chain collectives staying eager. On the CPU, and under a genes axis, the
+leapfrogs run eagerly, one op at a time. The plain
 sampler does not wait on the device: L_t is drawn on the host from a CPU
 generator, and the accept and step-size state stay on the device until the
 end of the run. The ChEES warmup reads its L_t from the device once per
@@ -106,10 +108,11 @@ class HMCResult:
 
 class GeneratorDraws:
     """The random numbers of the samplers' transitions, from one
-    torch.Generator: `momentum(shape)` standard normals and `uniform(n,
-    what)` uniforms on [0, 1), `what` naming the decision ("accept",
-    "direction", "leaf", "merge"). Another object with these two methods
-    can replay a reference's random stream."""
+    torch.Generator: `momentum(shape)` standard normals, `uniform(n, what)`
+    uniforms on [0, 1), `what` naming the decision ("accept"), and
+    `tree_uniforms(n, max_depth)`, a NUTS transition's uniforms drawn at its
+    start. Another object with these methods can replay a reference's
+    random stream."""
 
     def __init__(self, generator: torch.Generator, device, dtype):
         self.generator, self.device, self.dtype = generator, device, dtype
@@ -123,6 +126,18 @@ class GeneratorDraws:
     def init_uniform(self, shape):
         """Uniforms on [0, 1) of a [chains, D] initial state."""
         return torch.rand(shape, generator=self.generator, device=self.device, dtype=self.dtype)
+
+    def tree_uniforms(self, n: int, max_depth: int) -> dict:
+        """The uniforms of a NUTS transition of n chains, drawn at its start
+        (one torch.rand): "direction" and "merge" [max_depth, n], one row
+        per doubling, and "leaf" [2^max_depth - 1, n], doubling d's leaves
+        at rows 2^d - 1 ... 2^(d+1) - 2. The transition reads the rows of
+        the doublings and leaves it runs."""
+        leaves = (1 << max_depth) - 1
+        u = torch.rand((2 * max_depth + leaves, n), generator=self.generator,
+                       device=self.device, dtype=self.dtype)
+        return {"direction": u[:max_depth], "leaf": u[max_depth:max_depth + leaves],
+                "merge": u[max_depth + leaves:]}
 
 
 class LayoutDraws(GeneratorDraws):
@@ -149,6 +164,10 @@ class LayoutDraws(GeneratorDraws):
 
     def init_uniform(self, shape):
         return self._mine(super().init_uniform((self.num_chains, self.dim)))
+
+    def tree_uniforms(self, n: int, max_depth: int) -> dict:
+        return {k: v[:, self.c0:self.c1]
+                for k, v in super().tree_uniforms(self.num_chains, max_depth).items()}
 
 
 def logp_and_grad(log_density, z, data=None):
@@ -221,9 +240,11 @@ class CapturedTrajectory:
 
 
 def _trajectory(log_density, data, grad_fn, z, inv_mass, layout, device):
-    """The run's trajectory function: captured on the card without a mesh
-    (cached, graphs.cached), else eager."""
-    if layout is not _SINGLE or not graphs.enabled(device):
+    """The run's trajectory function: captured on the card where the state
+    has no genes axis (cached, graphs.cached), else eager. A leapfrog runs
+    no collective under a chains-only mesh (sampler_density's grad_fn is
+    the single-device one there); the chain collectives stay outside it."""
+    if layout.genes is not None or not graphs.enabled(device):
         return eager_trajectory(grad_fn, inv_mass)
     key = (log_density, graphs.operand_key(data), tuple(z.shape), tuple(inv_mass.shape),
            z.dtype, z.device)

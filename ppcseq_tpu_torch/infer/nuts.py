@@ -21,24 +21,32 @@ JAX vmaps a per-chain while_loop. Here the chains run in lockstep:
   device tensors;
 - a chain that is done is still evaluated in the batched log density (one
   launch for all chains), but its state never changes.
-Deciding "any chain still active" reads one boolean from the device: one
-host sync per leaf and per depth, counted in NUTSResult.host_syncs. Each
-chain's own leapfrogs (`num_leapfrog`) are counted apart from the lockstep
-ones (`lockstep_leapfrog`, leaf steps x chains): their ratio is what the
-lockstep costs.
+Each chain's own leapfrogs (`num_leapfrog`) are counted apart from the
+lockstep ones (`lockstep_leapfrog`, leaf steps x chains): their ratio is
+what the lockstep costs.
 
 The transition's state lives in fixed-shape buffers (`_Tree`), and its
-steps (a doubling's begin, a leaf, its end) read and write only them. On
-a CUDA device without a mesh (infer/graphs.py) each step replays a CUDA
-graph (`CapturedTree`: begin, the even leaf, the odd leaf, end, and the
-step-size search's step), the counterpart of the programs JAX compiles in
-_build_nuts_runners; the
-uniforms and momenta are drawn eagerly in the eager order into the
-buffers before the replay that reads them, and the counting stays on the
-host, so a graph run is bitwise the eager run. The capture is cached per
-(density, data structure, chains, D, dtype, device, max_depth), the data an
-operand. On the CPU, under a mesh and inside graphs.disabled() the same
-steps run eagerly.
+steps (a doubling's begin, a leaf, its end) read and write only them, its
+uniforms included: a transition draws all of them at its start
+(`draws.tree_uniforms`), and the steps read them at device counters (the
+doubling, the leaf). Who decides which step runs next:
+- on a CUDA device without a mesh (infer/graphs.py), the device
+  (`CapturedTree`, the counterpart of the while_loops JAX compiles in
+  _build_nuts_runners): a captured stride of STRIDE tree steps, each step
+  JAX's cond/body pair once, its begin, leaf and end each a conditional
+  node on a flag computed on the device; the host replays strides and
+  reads one word per stride (the transition is done), and the device
+  counts the bodies it ran, for the counters and the kernel launches;
+- on the CPU, under a mesh and inside graphs.disabled(), the host: it
+  reads "any chain still building" before each doubling and "any chain
+  still active" before each leaf but the first (a collective over the
+  chains axis under a mesh), one host sync each, and calls the same steps
+  eagerly. This is the reference that the device-decided run is held
+  against bit for bit.
+NUTSResult.host_syncs counts the reads either way. The step-size search's
+step is captured too. The capture is cached per (density, data
+structure, chains, D, dtype, device, max_depth, stride), the data an
+operand.
 
 The log density, the energies and every quantity derived from energy
 differences (multinomial weights, accept statistics, the divergence test)
@@ -105,7 +113,7 @@ def _leaf_to_ckpt(i: int) -> tuple[int, int]:
 def ckpt_table(max_depth: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi), int64 tensors on `device`: _leaf_to_ckpt(i) of every leaf i
     of a subtree of at most 2^max_depth leaves (at least WARMUP_RUNS + 1
-    entries: a leaf region's warm-up and capture step its counter from 0)."""
+    entries: room for a capture's warm-up of both leaf parities)."""
     n = max(1 << max_depth, graphs.WARMUP_RUNS + 1)
     lo, hi = zip(*(_leaf_to_ckpt(i) for i in range(n)))
     return (torch.tensor(lo, dtype=torch.int64, device=device),
@@ -151,15 +159,17 @@ class _Tree:
     """One lockstep NUTS transition of every chain in fixed-shape buffers:
     JAX's _TrajCarry (`traj`, nuts.py:181-198) and _SubtreeCarry (`sub`,
     :92-107) per chain, the transition's inputs (inverse mass, step size,
-    initial energy) and the uniforms `u` that the steps read. A transition
-    is `start`, then per doubling the steps "begin", a leaf per tree leaf
-    ("even" or "odd", by the leaf's parity) and "end" (`steps`, driven by
-    _nuts_transition); the run's step-size search is `start_search` and
-    eight "search" steps (_find_eps). A step reads and writes only these buffers and reads
-    no host value that changes between its calls: the leaf counter is a
-    device tensor, and a leaf reads its checkpoint slot range from the
-    device table `ckpt` at it. So a replay of a step's capture
-    (CapturedTree) runs the eager step's operations on the same shapes."""
+    initial energy), its uniforms `u` and the device counters that index
+    them: the doubling `d` and the subtree's leaf `sub["leaf"]`. A
+    transition is `start`, then per doubling the steps `begin`, a `leaf`
+    per tree leaf (even or odd, by the leaf's parity) and `end`, in the
+    order `run` decides on the host; the run's step-size search is
+    `start_search` and eight `search` steps (_find_eps). A step reads and
+    writes only these buffers and reads no host value that changes between
+    its calls: the counters are device tensors, and a leaf reads its
+    checkpoint slot range from the device table `ckpt` and its uniform
+    from row 2^d - 1 + leaf. So a capture of the steps (CapturedTree) runs
+    the eager steps' operations on the same shapes."""
 
     def __init__(self, grad_fn, z, max_depth: int, layout=_SINGLE):
         C, D = z.shape
@@ -180,7 +190,15 @@ class _Tree:
         self.inv_mass = torch.ones((C, D), **kw)
         self.eps = torch.zeros((C, 1), **kw)
         self.energy0 = f64()
-        self.u = {what: torch.zeros(C, **kw) for what in ("direction", "leaf", "merge")}
+        # tree_uniforms's rows, at least one per doubling and two leaves
+        # (a capture's warm-up runs doubling 0 with both leaf parities), and
+        # 2^max_depth leaves: a whole subtree of depth max_depth fits
+        rows = max(max_depth, 1)
+        self.u = {"direction": torch.zeros((rows, C), **kw),
+                  "leaf": torch.zeros((max(1 << max_depth, 2), C), **kw),
+                  "merge": torch.zeros((rows, C), **kw)}
+        self.d = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.first_leaf = torch.tensor([(1 << k) - 1 for k in range(K)], device=dev)
         self.ckpt = ckpt_table(max_depth, dev)
         self.slots = torch.arange(K, device=dev)
         # the first z (the run's start) makes a capture's warm-up evaluate there
@@ -200,6 +218,10 @@ class _Tree:
         self.steps = {"begin": self.begin, "even": functools.partial(self.leaf, False),
                       "odd": functools.partial(self.leaf, True), "end": self.end,
                       "search": self.search}
+
+    def _u(self, what, row):
+        """The uniforms [chains] of u[what] at the device index row[1]."""
+        return torch.index_select(self.u[what], 0, row)[0]
 
     def start_search(self, z, logp, grad, inv_mass, r):
         """The step-size search's start (nuts.py:119-131): z, its gradient
@@ -221,12 +243,16 @@ class _Tree:
         self.eps.copy_(torch.where(delta.view(-1, 1) > math.log(0.8), self.eps * 2.0,
                                    self.eps * 0.5))
 
-    def start(self, z, logp, grad, eps, inv_mass, r0):
-        """A transition's inputs and JAX's trajectory init (nuts.py:203-219)
-        from momenta r0."""
+    def start(self, z, logp, grad, eps, inv_mass, r0, u):
+        """A transition's inputs, its uniforms u (draws.tree_uniforms) and
+        JAX's trajectory init (nuts.py:203-219) from momenta r0, at
+        doubling 0."""
         self.inv_mass.copy_(inv_mass)
         self.eps.copy_(eps.to(z.dtype).view(-1, 1))
         self.energy0.copy_(_energy(logp, r0, self.inv_mass, self.layout))
+        for k, v in u.items():
+            self.u[k][:len(v)].copy_(v)
+        self.d.zero_()
         t = self.traj
         _assign(t, zl=z, zr=z, z_prop=z, rl=r0, rr=r0, r_sum=r0, gl=grad, gr=grad, g_prop=grad,
                 logp_prop=logp)
@@ -235,12 +261,12 @@ class _Tree:
         t["building"].fill_(True)
 
     def begin(self):
-        """A doubling's subtree from the trajectory's end that the direction
+        """Doubling d's subtree from the trajectory's end that its direction
         uniform picks: the signed step and JAX's _SubtreeCarry init
         (nuts.py:225-233, 167-177), its checkpoints zero, for the chains
         still building (`active`)."""
         t, s = self.traj, self.sub
-        go_right = self.u["direction"] < 0.5
+        go_right = self._u("direction", self.d) < 0.5
         z0 = _where(go_right, t["zr"], t["zl"])
         g0 = _where(go_right, t["gr"], t["gl"])
         _assign(s, go_right=go_right, active=t["building"], live=t["building"],
@@ -260,7 +286,7 @@ class _Tree:
         the max_depth + 1 checkpoint slots, counted where lo <= j <= hi
         (JAX's masked scan). An even leaf writes slot hi, a one-hot select.
         (lo, hi) come from the device table at the leaf counter, which the
-        leaf advances; `live` is m after the leaf, what the host reads."""
+        leaf advances; `live` is m after the leaf."""
         s, inv_mass = self.sub, self.inv_mass
         m = s["active"] & ~s["turning"] & ~s["diverging"]
         z1, r1, g1, lp1 = leapfrog(s["z"], s["r"], s["g"], s["eps"], inv_mass, self.grad_fn)
@@ -285,7 +311,8 @@ class _Tree:
         log_w = -delta
         accept = torch.exp(log_w).clamp_(max=1.0)
         new_total = torch.logaddexp(s["log_weight"], log_w)
-        take = (self.u["leaf"] < torch.exp(log_w - new_total)) & m
+        u = self._u("leaf", torch.index_select(self.first_leaf, 0, self.d) + s["leaf"])
+        take = (u < torch.exp(log_w - new_total)) & m
         turning = torch.where(m, turned, s["turning"])
         diverging = torch.where(m, delta > MAX_DELTA_ENERGY, s["diverging"])
         _assign(s, z_prop=_where(take, z1, s["z_prop"]),
@@ -301,8 +328,8 @@ class _Tree:
     def end(self):
         """The subtree's merge into the trajectory (biased progressive
         sampling, Stan/Betancourt) and the trajectory's U-turn test
-        (nuts.py:236-263), for the chains that were building; `building`
-        is then what the host reads before the next doubling."""
+        (nuts.py:236-263), for the chains that were building; then the
+        next doubling (d + 1)."""
         t, s, b = self.traj, self.sub, self.traj["building"]
         right, left = b & s["go_right"], b & ~s["go_right"]
         ends = {}
@@ -310,7 +337,7 @@ class _Tree:
             ends[k + "l"] = _where(left, s[k], t[k + "l"])
             ends[k + "r"] = _where(right, s[k], t[k + "r"])
         p_new = torch.clamp(torch.exp(s["log_weight"] - t["log_weight"]), max=1.0)
-        take = (self.u["merge"] < p_new) & ~s["turning"] & ~s["diverging"] & b
+        take = (self._u("merge", self.d) < p_new) & ~s["turning"] & ~s["diverging"] & b
         r_sum_new = t["r_sum"] + s["r_sum"]
         turned = s["turning"] | _is_turning(r_sum_new, ends["rl"], ends["rr"], self.inv_mass,
                                             self.layout)
@@ -325,6 +352,24 @@ class _Tree:
                 sum_accept=torch.where(b, t["sum_accept"] + s["sum_accept"], t["sum_accept"]),
                 num_steps=t["num_steps"] + torch.where(b, s["steps"], 0),
                 depth=t["depth"] + b.to(torch.int64), building=~turning & ~diverging)
+        self.d.add_(1)
+
+    def run(self, counters):
+        """The transition's doublings and leaves after `start`, decided on
+        the host (nuts.py:221-265, :110-178): a doubling while any chain is
+        building, a leaf while any chain is active in the subtree (at leaf
+        0 every chain of `active` is: the check before the doubling)."""
+        for d in range(self.max_depth):
+            if not counters.any(self.traj["building"]):
+                break
+            self.begin()
+            for i in range(1 << d):
+                if i > 0 and not counters.any(self.sub["live"]):
+                    break
+                self.leaf(i % 2 == 1)
+                counters.evals += 1
+                counters.leaf_steps += 1
+            self.end()
 
     def result(self):
         """(z, logp, grad, stats) of the transition, copied out of the
@@ -337,35 +382,131 @@ class _Tree:
         return t["z_prop"].clone(), t["logp_prop"].clone(), t["g_prop"].clone(), stats
 
 
-class CapturedTree(_Tree):
-    """_Tree whose steps replay CUDA graphs (graphs.Region): "begin", one
-    leaf per parity, "end" and the step-size search's step, each captured
-    once; the counterpart of JAX's jit of its NUTS runners
-    (_build_nuts_runners). The density reads a static copy of the run's
-    data, which `load` refills."""
+STRIDE = 16  # tree steps per replay of CapturedTree's stride (PERF.md §6)
+_BODIES = ("begin", "even", "odd", "end")
 
-    def __init__(self, log_density, data, z, max_depth: int):
+
+class CapturedTree(_Tree):
+    """_Tree whose transitions the device decides: the counterpart of the
+    while_loops that JAX compiles in _build_nuts_runners. One CUDA graph
+    (graphs.Region) holds a stride of `stride` tree steps; a step is JAX's
+    cond/body pair once, four conditional nodes side by side (graphs.when),
+    each on a flag that the step computes on the device just before it:
+    - begin, if no subtree is open, d < max_depth and any chain is
+      building;
+    - the even or the odd leaf (by the leaf counter's parity), if a
+      subtree is open, the leaf is below 2^d and it is leaf 0 or any chain
+      is still active;
+    - end (then d + 1), if a subtree is open and its leaves are done (leaf
+      2^d, or no chain active).
+    So a step runs at most one leaf, every step before the transition is
+    done runs one, and a step after it changes nothing. The step then
+    writes `status`: the transition is done (no subtree open, and d =
+    max_depth or no chain building), and how many times each body ran.
+    `run` replays strides until the host reads done, one read per stride,
+    and books what the device counted. The step-size search's step is
+    captured as a region of its own. The density reads a static copy of
+    the run's data, which `load` refills."""
+
+    def __init__(self, log_density, data, z, max_depth: int, stride: int = STRIDE):
         self.data = graphs.static_operand(data)
         super().__init__(functools.partial(logp_and_grad, log_density, data=self.data), z,
                          max_depth)
-        replays = {}
-        for name, fn in self.steps.items():
-            self.sub["leaf"].zero_()  # a capture's runs stay inside ckpt_table
-            replays[name] = graphs.Region(fn, z.device, f"NUTS {name}").replay
-        self.steps = replays
+        dev = z.device
+        self.stride = stride
+        self.in_subtree = torch.zeros((), dtype=torch.bool, device=dev)
+        self.n_leaves = torch.tensor([1 << k for k in range(max_depth + 1)], device=dev)
+        # done, then the runs of each body since the transition's start
+        self.status = torch.zeros(1 + len(_BODIES), dtype=torch.int64, device=dev)
+        ran = {name: self.status[j + 1:j + 2] for j, name in enumerate(_BODIES)}
+        opens = {"begin": True, "end": False}
+        step = self.steps
+
+        def body(name):
+            def fn():
+                step[name]()
+                if name in opens:
+                    self.in_subtree.fill_(opens[name])
+                ran[name].add_(1)
+            return fn
+
+        self.bodies = {name: body(name) for name in _BODIES}
+        self.body_launches = {}
+        self.steps = dict(step, search=graphs.Region(self.search, dev, "NUTS search").replay)
+        self._stride = graphs.Region(self._strided, dev, f"NUTS stride of {stride}",
+                                     warmup=self._warm, books=False)
 
     def load(self, data):
         if data is not None:
             graphs.load_operand(self.data, data)
 
+    def _rewind(self):
+        """Doubling 0, leaf 0, no subtree open, no chain building."""
+        for t in (self.d, self.sub["leaf"], self.in_subtree, self.status,
+                  self.traj["building"]):
+            t.zero_()
+
+    def _warm(self):
+        """The stride's warm-up: each body once from the rewound state
+        (doubling 0, both leaf parities), recording its launches, then one
+        step, which runs no body."""
+        self._rewind()
+        for name, fn in self.bodies.items():
+            self.body_launches[name] = graphs.launches_of(fn)
+        self._rewind()
+        self._step()
+
+    def _step(self):
+        """One tree step (the class docstring's four flags, each computed
+        on the device just before its body), then the done flag."""
+        t, s, d, i = self.traj, self.sub, self.d, self.sub["leaf"]
+        open_ = self.in_subtree
+        graphs.when((~open_ & (d < self.max_depth) & t["building"].any()).reshape(()),
+                    self.bodies["begin"])
+        n = torch.index_select(self.n_leaves, 0, d)
+        leaf = (open_ & (i < n) & ((i == 0) | s["live"].any())).reshape(())
+        odd = (i % 2 == 1).reshape(())
+        graphs.when(leaf & ~odd, self.bodies["even"])
+        graphs.when(leaf & odd, self.bodies["odd"])
+        graphs.when((open_ & ((i == n) | ~s["live"].any())).reshape(()), self.bodies["end"])
+        done = ~open_ & ((d == self.max_depth) | ~t["building"].any())
+        self.status[:1].copy_(done)
+
+    def _strided(self):
+        for _ in range(self.stride):
+            self._step()
+
+    def start(self, *args):
+        super().start(*args)
+        self.in_subtree.zero_()
+        self.status.zero_()
+
+    def run(self, counters):
+        """Replay strides until the transition is done, reading `status`
+        once per stride; book the bodies' launches and the leaves the device
+        ran."""
+        while True:
+            self._stride.replay()
+            done, *ran = self.status.tolist()
+            counters.host_syncs += 1
+            if done:
+                break
+        for name, times in zip(_BODIES, ran):
+            graphs.book(self.body_launches[name], times)
+        leaves = ran[1] + ran[2]
+        counters.evals += leaves
+        counters.leaf_steps += leaves
+
 
 def _transition_tree(log_density, data, grad_fn, z, max_depth, layout, device):
-    """The run's _Tree: captured on the card without a mesh (cached,
-    graphs.cached), else eager."""
+    """The run's _Tree: the device-decided CapturedTree on the card without a
+    mesh (cached, graphs.cached; STRIDE steps per replay), else eager."""
     if layout is not _SINGLE or not graphs.enabled(device):
         return _Tree(grad_fn, z, max_depth, layout)
-    key = (log_density, graphs.operand_key(data), tuple(z.shape), z.dtype, z.device, max_depth)
-    tree = graphs.cached("nuts", key, lambda: CapturedTree(log_density, data, z, max_depth))
+    key = (log_density, graphs.operand_key(data), tuple(z.shape), z.dtype, z.device, max_depth,
+           STRIDE)
+    tree = graphs.cached("nuts", key,
+                         lambda: CapturedTree(log_density, data, z, max_depth, STRIDE))
     tree.load(data)
     return tree
 
@@ -377,29 +518,13 @@ def _nuts_transition(grad_fn, z, logp, grad, eps, inv_mass, max_depth, draws, co
     Returns (z, logp, grad, stats) with stats accept_prob, diverging,
     num_steps and depth, each [chains]. `tree` (a _Tree of these shapes and
     max_depth; a new eager one by default) holds the state and runs the
-    steps; the host draws every random number in the eager order into its
-    buffers, reads one decision per doubling and per leaf, and counts."""
+    transition (`run`) from its momenta and uniforms, drawn here first."""
     counters = counters or _Counters()
     tree = tree or _Tree(grad_fn, z, max_depth, counters.layout)
-    C = z.shape[0]
-    tree.start(z, logp, grad, eps, inv_mass, draws.momentum(z.shape) / torch.sqrt(inv_mass))
-    steps = tree.steps
-    for d in range(tree.max_depth):
-        if not counters.any(tree.traj["building"]):
-            break
-        tree.u["direction"].copy_(draws.uniform(C, "direction"))
-        steps["begin"]()
-        for i in range(1 << d):
-            # at leaf 0 every chain of `active` builds: the check above
-            if i > 0 and not counters.any(tree.sub["live"]):
-                break
-            tree.u["leaf"].copy_(draws.uniform(C, "leaf"))
-            steps["odd" if i % 2 else "even"]()
-            counters.evals += 1
-            counters.leaf_steps += 1
-        tree.u["merge"].copy_(draws.uniform(C, "merge"))
-        steps["end"]()
-    counters.transitions += C
+    r0 = draws.momentum(z.shape) / torch.sqrt(inv_mass)
+    tree.start(z, logp, grad, eps, inv_mass, r0, draws.tree_uniforms(z.shape[0], tree.max_depth))
+    tree.run(counters)
+    counters.transitions += z.shape[0]
     counters.depth_sum = counters.depth_sum + tree.traj["depth"].sum()
     return tree.result()
 

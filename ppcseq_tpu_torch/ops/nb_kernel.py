@@ -40,6 +40,7 @@ float64 forms) for its bound (chip_smoke.py), on the branch shares of
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -383,6 +384,27 @@ def _tiled(name, B, S, C, G, want_grads, T, BY, SY):
 
 
 _TICKETS: dict = {}  # (device index, stream) -> the zeroed ticket its launches share
+_TICKET_STREAM: dict = {}  # device index -> the stream whose ticket launches take (ticket_of)
+
+
+@contextlib.contextmanager
+def ticket_of(stream):
+    """Inside the block, launches on `stream`'s device take `stream`'s
+    ticket, whatever stream they run on. A CUDA graph's conditional body is
+    captured on a stream of its own (infer/graphs.CudaCapture.if_node), and
+    its kernels run inside the graph, in the order of the stream that
+    captures the graph: they share that stream's ticket, as the graph's
+    other kernels do."""
+    index = stream.device.index
+    before = _TICKET_STREAM.get(index)
+    _TICKET_STREAM[index] = stream.cuda_stream
+    try:
+        yield
+    finally:
+        if before is None:
+            del _TICKET_STREAM[index]
+        else:
+            _TICKET_STREAM[index] = before
 
 
 def _ticket(dev, stream):
@@ -391,7 +413,7 @@ def _ticket(dev, stream):
     infer/graphs.py warms a region up on that stream first: a ticket made
     inside a capture would be memory of the graph's pool, zeroed only when
     the graph replays."""
-    key = (dev.index, stream)
+    key = (dev.index, _TICKET_STREAM.get(dev.index, stream))
     if key not in _TICKETS:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("a kernel's first launch on a stream is under CUDA graph "

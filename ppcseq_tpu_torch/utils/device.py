@@ -56,7 +56,9 @@ def gpu_name_and_power_limit() -> str:
 
 
 def probe() -> str:
-    """One line per fact: library versions, compiler, and the card."""
+    """One line per fact: library versions, compiler, the card, and whether
+    this torch has a call of its own for CUDA-graph IF nodes (the port makes
+    them itself, infer/graphs.py)."""
     nvcc = nvcc_path()
     nvcc_v = _run([nvcc, "--version"]).splitlines()[-1] if nvcc else "missing"
     lines = [
@@ -68,5 +70,7 @@ def probe() -> str:
         f"pandas {_version('pandas')}",
         f"pyarrow {_version('pyarrow')}",
         f"gpu {gpu_name_and_power_limit()}",
+        "cuda graph conditional nodes (torch.cuda.CUDAGraph.begin_capture_to_if_node): "
+        f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}",
     ]
     return "\n".join(lines)

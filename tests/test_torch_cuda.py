@@ -18,6 +18,8 @@ import torch
 from ppcseq_tpu_torch.infer import graphs
 from ppcseq_tpu_torch.infer.advi import fit_advi
 from ppcseq_tpu_torch.infer.hmc import run_hmc
+from ppcseq_tpu_torch.infer import nuts
+from ppcseq_tpu_torch.infer.hmc import logp_and_grad
 from ppcseq_tpu_torch.infer.nuts import run_nuts
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.ops import nb, nb_fast, nb_grad, nb_kernel
@@ -743,10 +745,12 @@ def test_short_nuts_run_launches_k1_at_every_gradient():
     assert torch.isfinite(res.draws).all() and res.draws.shape == (3, 10, dims.dim)
     assert {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {"nb_glm_delta": res.num_evals}
     # the leaves and the step-size search replay captured steps: the
-    # density's Python ran at the first gradient and at the warm-up and
-    # capture of each leaf parity and of the search step; eagerly, at every
-    # gradient
-    assert batches == [3] * (1 + 3 * (graphs.WARMUP_RUNS + 1))
+    # density's Python ran at the first gradient, at the search step's
+    # warm-up and capture, at the stride's warm-up of each leaf parity and
+    # at its capture of STRIDE steps, each with both leaf parities' bodies;
+    # eagerly, at every gradient
+    assert batches == [3] * (1 + graphs.WARMUP_RUNS + 1 + 2 * graphs.WARMUP_RUNS
+                             + 2 * nuts.STRIDE)
     assert res.lockstep_leapfrog >= res.num_leapfrog > 0
     batches.clear()
     nb_kernel.reset_launches()
@@ -954,7 +958,9 @@ def test_run_nuts_through_graphs_draws_the_eager_draws(baseline):
     """A short NUTS run through "fast" without a baseline (K2) and with one
     (K1): the graphs' draws equal the eager run's bit for bit, with the same
     step sizes, inverse masses, counters and kernel launches (one per
-    batched evaluation)."""
+    batched evaluation); the device decides the leaves, so the host reads
+    once per stride of leaves (at most ceil(leaves / STRIDE) per
+    transition) where the eager run reads once per leaf and doubling."""
     _needs_card()
     dev = torch.device("cuda")
     data, dims, _, _ = _fast_case(dev)
@@ -968,10 +974,62 @@ def test_run_nuts_through_graphs_draws_the_eager_draws(baseline):
     assert torch.equal(got.draws, eager.draws)
     for name in ("accept_prob", "step_size", "inv_mass"):
         assert np.array_equal(getattr(got, name), getattr(eager, name)), name
-    for name in ("num_leapfrog", "num_evals", "host_syncs", "mean_depth"):
+    for name in ("num_leapfrog", "lockstep_leapfrog", "num_evals", "mean_depth"):
         assert getattr(got, name) == getattr(eager, name), name
+    transitions, leaves = 24 + 8, got.lockstep_leapfrog // 4
+    assert transitions <= got.host_syncs <= leaves / nuts.STRIDE + transitions
+    assert eager.host_syncs >= leaves
     kernel = "nb_glm_delta" if baseline else "nb_glm_plain"
     assert got_n == eager_n == {kernel: got.num_evals}
+
+
+@pytest.mark.parametrize("baseline", [False, True], ids=["K2", "K1"])
+def test_if_node_region_runs_its_body_only_where_the_flag_holds(baseline):
+    """graphs.when under a capture: a region whose body (a batched log
+    density and gradient through K2, or K1) is an IF node replays it where
+    the device flag holds and skips it where it does not. The body counts
+    its runs on the device; booked, they give nb_kernel.LAUNCHES, and the
+    outputs equal the eager call's bit for bit. The capturing stream's
+    ticket is back at 0 (the body's kernels share it)."""
+    _needs_card()
+    dev = torch.device("cuda")
+    data, dims, _, _ = _fast_case(dev)
+    if not baseline:
+        data = nb_model.upload(data.host, dev, torch.float32)
+    logp = nb_model.flat_logp(dims)
+    theta = torch.as_tensor(nb_model.smart_init(data, dims), dtype=torch.float32,
+                            device=dev)[None].repeat(3, 1)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    ran = torch.zeros(1, dtype=torch.int64, device=dev)
+    lp, g = torch.zeros(3, dtype=torch.float64, device=dev), torch.zeros_like(theta)
+
+    def body():
+        for buf, new in zip((lp, g), logp_and_grad(logp, theta, data)):
+            buf.copy_(new)
+        ran.add_(1)
+
+    launches = {}
+    region = graphs.Region(lambda: graphs.when(flag, body), dev, "IF-node test",
+                           warmup=lambda: launches.update(graphs.launches_of(body)), books=False)
+    kernel = "nb_glm_delta" if baseline else "nb_glm_plain"
+    assert region.launches == {} and launches == {kernel: 1}
+    ran.zero_()
+    lp.zero_()
+    nb_kernel.reset_launches()
+    for on in (False, False):
+        flag.fill_(on)
+        region.replay()
+    assert int(ran.item()) == 0 and not lp.any()
+    for on in (True, False, True, True):
+        flag.fill_(on)
+        region.replay()
+    times = int(ran.item())
+    graphs.book(launches, times)
+    assert times == 3 and {k: v for k, v in nb_kernel.LAUNCHES.items() if v} == {kernel: 3}
+    want_lp, want_g = logp_and_grad(logp, theta, data)
+    assert torch.equal(lp, want_lp) and torch.equal(g, want_g)
+    stream = graphs._side_stream(dev).cuda_stream
+    assert int(nb_kernel._TICKETS[(dev.index or 0, stream)].item()) == 0
 
 
 def test_a_failed_capture_raises_and_runs_nothing_eagerly():

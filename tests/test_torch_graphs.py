@@ -242,6 +242,45 @@ def test_run_hmc_through_graphs_draws_the_eager_draws(chees, monkeypatch):
     assert graphs.STATS["replays"] == got.num_leapfrog // 4
 
 
+@pytest.mark.parametrize("chees", [False, True], ids=["jittered", "chees"])
+def test_run_hmc_under_a_chains_mesh_replays_the_leapfrog(chees, stub_graphs, tmp_path):
+    """Under a chains-only mesh (a `chains` axis over a one-rank gloo group)
+    run_hmc takes the captured leapfrog, its chain collectives (the accept
+    means, ChEES's statistics, the gathers) staying eager, and draws the
+    run of graphs.disabled() bit for bit; a layout with a genes axis keeps
+    the eager leapfrogs."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    data, dims = _nb_case(dtype=torch.float32)
+    kw = dict(data=data, num_chains=4, num_warmup=6, num_draws=4, num_leapfrog=6,
+              init_theta=nb_model.smart_init(data, dims), adapt_trajectory=chees,
+              device="cpu")
+    logp = nb_model.flat_logp(dims)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("chains",))
+        got = hmc.run_hmc(logp, dims.dim, torch.Generator().manual_seed(5), mesh=mesh, **kw)
+        assert graphs.STATS["captures"] == 1
+        assert graphs.STATS["replays"] == got.num_leapfrog // 4
+        with graphs.disabled():
+            eager = hmc.run_hmc(logp, dims.dim, torch.Generator().manual_seed(5), mesh=mesh,
+                                **kw)
+    finally:
+        dist.destroy_process_group()
+    assert got.chains == eager.chains == (0, 4)
+    assert torch.equal(got.draws, eager.draws)
+    assert got.step_size == eager.step_size and got.num_leapfrog == eager.num_leapfrog
+    assert np.array_equal(got.accept_prob, eager.accept_prob)
+    z = torch.zeros((2, dims.dim))
+    sharded = hmc._trajectory(logp, data, None, z, torch.ones(dims.dim),
+                              SimpleNamespace(genes=object()), "cpu")
+    assert sharded.__name__ == "trajectory"  # eager_trajectory's
+
+
 def test_fit_advi_without_a_gene_shard_replays_graphs(stub_graphs):
     """A layout with no gene shard (the MCMC warm start under a chains-only
     mesh) runs no collective in ADVI: fit_advi takes the single-device fit,

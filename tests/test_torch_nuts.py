@@ -125,7 +125,10 @@ class _JaxKeys:
     """The port's `draws` interface replaying JAX's key splits per chain:
     the momentum from split(key, 3) (nuts.py:203), per doubling the
     direction, subtree and merge keys from split(t.key, 4) (:225), per
-    leaf the accept key from split(c.key) (:127)."""
+    leaf the accept key from split(c.key) (:127). `tree_uniforms` makes
+    every doubling's and leaf's key in that order, up front: those of the
+    doublings and leaves that JAX runs are JAX's keys, the others go
+    unused."""
 
     def __init__(self, keys):
         self.keys = list(keys)
@@ -153,6 +156,15 @@ class _JaxKeys:
                 assert what == "merge"
                 ks.append(self.merge_keys[c])
         return _t([float(jax.random.uniform(k)) for k in ks])
+
+    def tree_uniforms(self, n, max_depth):
+        rows = {"direction": [], "leaf": [], "merge": []}
+        for d in range(max_depth):
+            rows["direction"].append(self.uniform(n, "direction"))
+            rows["leaf"] += [self.uniform(n, "leaf") for _ in range(1 << d)]
+            rows["merge"].append(self.uniform(n, "merge"))
+        return {k: torch.stack(v) if v else torch.zeros((0, n), dtype=torch.float64)
+                for k, v in rows.items()}
 
 
 def _jax_transition(z, eps, inv_mass, key):

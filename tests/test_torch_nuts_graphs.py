@@ -74,7 +74,7 @@ def test_masked_subtree_is_jax_build_subtree(seed):
     zt = _t(z)
     lp, g = _torch_logp_grad(zt)
     tree = nuts._Tree(_torch_logp_grad, zt, max_depth)
-    tree.start(zt, lp, g, _t(eps), _t(inv_mass), _t(r0))
+    tree.start(zt, lp, g, _t(eps), _t(inv_mass), _t(r0), {})  # uniforms: set below
     tree.u["direction"].fill_(0.0)  # go right: the subtree steps by +eps
     tree.steps["begin"]()
     leaf_keys = list(keys)
@@ -113,15 +113,16 @@ def test_masked_subtree_is_jax_build_subtree(seed):
                          ids=["key0", "key1", "key2-deep", "key3", "key4-diverges"])
 def test_nuts_transition_replays_jax_through_graphs(seed, eps, stub_graphs):
     """tests/test_torch_nuts.py::test_nuts_transition_replays_jax through
-    the graph path: the transition's steps replay a CapturedTree (stub),
-    and z, logp, num_steps, depth, diverging and accept_prob equal JAX's
-    _nuts_transition at rtol 1e-10."""
+    the graph path: the transition replays a CapturedTree's stride (stub),
+    the device's decisions taken by the host, and z, logp, num_steps,
+    depth, diverging and accept_prob equal JAX's _nuts_transition at rtol
+    1e-10."""
     rng = np.random.default_rng(10 + seed)
     stats = _check_against_jax(rng.normal(size=(1, _D)), np.array([eps]),
                                rng.uniform(0.5, 2.0, (1, _D)), [seed],
                                tree=lambda z: nuts.CapturedTree(_torch_logp, None, z, 6))
     assert bool(stats["diverging"][0]) == (eps > 5)
-    assert graphs.STATS["captures"] == 5 and graphs.STATS["replays"] > 0
+    assert graphs.STATS["captures"] == 2 and graphs.STATS["replays"] > 0  # search, stride
 
 
 def test_lockstep_chains_each_replay_jax_through_graphs(stub_graphs):
@@ -157,13 +158,17 @@ def _run(logp, dims, kw, seed=3):
     return res, {k: v for k, v in nb_kernel.LAUNCHES.items() if v}
 
 
-def _assert_same_run(got, want):
+def _assert_same_run(got, want, transitions):
+    """got (through graphs) draws want's (eager) numbers with its counters
+    and launches, and reads the host once per transition: at max_depth 4
+    a transition's at most 15 leaves fit one stride."""
     (a, a_n), (b, b_n) = got, want
     assert torch.equal(a.draws, b.draws)
     for name in ("accept_prob", "divergences", "step_size", "inv_mass"):
         assert np.array_equal(getattr(a, name), getattr(b, name)), name
-    for name in ("num_leapfrog", "lockstep_leapfrog", "num_evals", "host_syncs", "mean_depth"):
+    for name in ("num_leapfrog", "lockstep_leapfrog", "num_evals", "mean_depth"):
         assert getattr(a, name) == getattr(b, name), name
+    assert a.host_syncs == transitions < b.host_syncs
     assert a_n == b_n
 
 
@@ -172,9 +177,11 @@ def test_run_nuts_through_graphs_is_the_eager_run(dtype, monkeypatch):
     """run_nuts on the NB model (S=6, G=10, no baseline, as the pipeline's
     flat_logp(dims) with data=) through the graph path (stub) draws the
     eager run's numbers bit for bit, with the same step sizes, inverse
-    masses, leapfrog counts, batched evaluations, host syncs and kernel
-    launches; the warmup crosses a metric window. A replay books the
-    launches its capture holds: one per leaf or search step."""
+    masses, leapfrog counts, batched evaluations and kernel launches, and
+    one host read per transition where the eager run reads one per leaf and
+    doubling; the warmup crosses a metric window. A search replay books the
+    launches its capture holds, a stride those of the leaves the device
+    counted: one per leaf or search step."""
     data, dims = _nb_case(dtype=dtype)
     data = nb_model.upload(data.host, "cpu", dtype)  # no baseline: K2's route
     logp = _counting(nb_model.flat_logp(dims))
@@ -183,13 +190,15 @@ def test_run_nuts_through_graphs_is_the_eager_run(dtype, monkeypatch):
     _stub(monkeypatch)
     graphs.reset_stats()
     got = _run(logp, dims, kw)
-    assert graphs.STATS["captures"] == 5
+    assert graphs.STATS["captures"] == 2
     graphs.release()
-    _assert_same_run(got, eager)
+    _assert_same_run(got, eager, 24)
     res, launches = got
     assert launches == {"nb_glm_plain": res.num_evals}
-    # the even and the odd leaf and the step-size search evaluate the density
-    assert graphs.STATS["build_launches"] == {"nb_glm_plain": 3 * (graphs.WARMUP_RUNS + 1)}
+    # the search's warm-up and capture and the stride's warm-up of the even
+    # and the odd leaf evaluate the density (the stub's capture of the
+    # stride, from a state with no chain building, runs no body)
+    assert graphs.STATS["build_launches"] == {"nb_glm_plain": 3 * graphs.WARMUP_RUNS + 1}
 
 
 def test_one_capture_serves_equal_shapes_and_a_new_dim_replaces_it(stub_graphs):
@@ -208,10 +217,10 @@ def test_one_capture_serves_equal_shapes_and_a_new_dim_replaces_it(stub_graphs):
         entries.append((graphs.STATS["captures"], graphs._CACHE["nuts"][0]))
         with graphs.disabled():
             eager = _run(logp, dims, kw)
-        _assert_same_run(got, eager)
+        _assert_same_run(got, eager, 9)
     (c0, k0), (c1, k1), (c2, k2) = entries
-    assert c0 == c1 == 5 and k0 == k1
-    assert c2 == 10 and k2 != k1 and list(graphs._CACHE) == ["nuts"]
+    assert c0 == c1 == 2 and k0 == k1
+    assert c2 == 4 and k2 != k1 and list(graphs._CACHE) == ["nuts"]
 
     def tree(layout):
         z = torch.zeros((2, _D), dtype=torch.float64)
