@@ -1948,6 +1948,178 @@ def _mesh_case_identify(mesh_shape, names, kw, against_eager=False):
     return case
 
 
+def _both_paths(run, digest, extra=lambda res: {}, captured=True):
+    """run(path) through graphs ("graphs") and inside graphs.disabled()
+    ("eager"): per path its digest (a function of the result), wall, kernel
+    launches, all-reduces by kind (sharding.COLLECTIVES, the host seconds
+    apart), captures, replays and extra(result), each counted from just
+    before the run.
+    Returns (the graph run's result, the row); the row's `ok` holds when
+    both digests, launches and all-reduces are equal, the eager run
+    captured nothing and the graph run captured where `captured` (the
+    path's route is the graph one) and nothing elsewhere."""
+    import contextlib
+
+    import torch
+
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.ops import nb_kernel
+    from ppcseq_tpu_torch.parallel import sharding
+
+    row, first = {}, None
+    for path in ("graphs", "eager"):
+        launches = dict(nb_kernel.LAUNCHES)
+        collectives = dict(sharding.COLLECTIVES)
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+            res = run(path)
+        torch.cuda.synchronize()
+        row[path] = dict(
+            wall_s=time.perf_counter() - t0, digest=digest(res),
+            launches={k: v - launches[k] for k, v in nb_kernel.LAUNCHES.items()
+                      if v != launches[k]},
+            collectives={k: v - collectives[k] for k, v in sharding.COLLECTIVES.items()
+                         if v != collectives[k] and k != "seconds"},
+            collective_host_s=sharding.COLLECTIVES["seconds"] - collectives["seconds"],
+            captures=graphs.STATS["captures"], replays=graphs.STATS["replays"], **extra(res))
+        first = res if first is None else first
+        graphs.release()
+    g, e = row["graphs"], row["eager"]
+    row.update(bitwise_equal=g["digest"] == e["digest"],
+               launches_equal=g["launches"] == e["launches"],
+               collectives_equal=g["collectives"] == e["collectives"])
+    row["ok"] = (row["bitwise_equal"] and row["launches_equal"] and row["collectives_equal"]
+                 and e["captures"] == 0 and (g["captures"] > 0) == captured)
+    return first, row
+
+
+# (b)'s and (g)'s NUTS: depth cut (max_depth 10 ran ~300 evaluations per
+# transition, 130 s eagerly at 15 genes)
+NCCL_NUTS = dict(num_chains=4, num_warmup=10, num_draws=5, max_depth=6)
+
+
+def _nuts_both_paths(logp, data, dims, mesh, device):
+    """run_nuts over `mesh` at NCCL_NUTS from smart_init, outside and inside
+    graphs.disabled() (_both_paths): under a mesh both runs are host-decided
+    and capture nothing (nuts._transition_tree: NCCL refuses an all-reduce
+    inside a conditional body over several ranks); its draws, step sizes
+    and inverse masses, host reads and ms per batched evaluation each
+    way."""
+    import torch
+
+    from ppcseq_tpu_torch.infer.nuts import run_nuts
+    from ppcseq_tpu_torch.model import nb_model
+
+    init = nb_model.smart_init(data, dims)
+
+    def digest(r):
+        return [_digest(r.draws), _digest(torch.as_tensor(r.step_size)),
+                _digest(torch.as_tensor(r.inv_mass))]
+
+    def extra(r):
+        return dict(evaluations=r.num_evals, host_reads=r.host_syncs,
+                    host_reads_per_evaluation=r.host_syncs / r.num_evals,
+                    mean_depth=r.mean_depth, divergences=int(r.divergences.sum()))
+
+    _, row = _both_paths(
+        lambda path: run_nuts(logp, dims.dim, torch.Generator(device=device).manual_seed(3),
+                              data=data, dims=dims, mesh=mesh, init_theta=init, device=device,
+                              **NCCL_NUTS), digest, extra, captured=False)
+    for name in ("graphs", "eager"):
+        row[name]["ms_per_evaluation"] = row[name]["wall_s"] / row[name]["evaluations"] * 1e3
+    return row
+
+
+def _host_launches(run, units):
+    """Host launch calls per unit of run(), through graphs and eagerly: a
+    first run (captures included) unprofiled, then one under
+    profile_advi.profiled."""
+    import contextlib
+
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.utils.profile_advi import profiled
+
+    out = {}
+    for path in ("graphs", "eager"):
+        with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+            run()
+            prof = profiled(run, units)
+        out[path] = dict(units=prof["units"], wall_ms=prof["wall_ms"],
+                         host_launches_per_unit=prof["host_launches_per_unit"],
+                         device_kernels_per_unit=prof["device_kernels_per_unit"],
+                         device_busy_share=prof["device_busy_share"])
+    graphs.release()
+    return out
+
+
+def _mesh_case_nccl(args, device):
+    """(b): a world of one under NCCL (a genes axis, and a chains x genes
+    mesh of 1 x 1), where the sharded VB and HMC take their graph route
+    (Layout.capturable), each through graphs and inside graphs.disabled():
+    VB and HMC through identify_outliers on the 3-gene case; NUTS through
+    run_nuts on the 15-gene model with its baseline (K1), host-decided
+    either way under a mesh; then the host's launch calls per sharded ADVI
+    step and per HMC leapfrog in profiled windows, each way."""
+    import functools
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch import identify_outliers, load_counts
+    from ppcseq_tpu_torch.infer.advi import fit_advi
+    from ppcseq_tpu_torch.infer.hmc import run_hmc_tree
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.parallel import sharding
+
+    genes = init_device_mesh(MESH_DEVICE, (1,), mesh_dim_names=("genes",))
+    both = init_device_mesh(MESH_DEVICE, (1, 1), mesh_dim_names=("chains", "genes"))
+    counts_df = load_counts()
+    df = _three(counts_df)
+    common = dict(formula="~ Label", sample="sample", transcript="symbol", abundance="value",
+                  significance="PValue", do_check="is_significant",
+                  percent_false_positive_genes=1, how_many_negative_controls=50, seed=42,
+                  pass_fit=True, device=device)
+    three = {"SLC16A12": 0, "CYP1A1": 1, "ART3": 0}
+
+    def calls(res):
+        return dict(zip(map(str, res.symbol), map(int, res.tot_deleterious_outliers)))
+
+    rows = {}
+    vb, rows["vb"] = _both_paths(
+        lambda path: identify_outliers(df, mesh=genes, **common),
+        lambda r: [_fit_digest(r.attrs["fit 1"]), _fit_digest(r.attrs["fit 2"])],
+        lambda r: {"calls": calls(r)})
+    _, rows["hmc"] = _both_paths(
+        lambda path: identify_outliers(df, mesh=genes, approximate_posterior_inference=False,
+                                  mcmc_sampler="hmc", **common),
+        lambda r: [_digest(r.attrs[k].draws) for k in ("fit 1", "fit 2")],
+        lambda r: {"calls": calls(r)})
+    data, dims, logp = _fifteen_model(counts_df, device)
+    data = nb_model.with_baseline(data, dims)
+    init = nb_model.smart_init(data, dims)
+
+    rows["nuts"] = _nuts_both_paths(logp, data, dims, both, device)
+
+    layout = sharding.Layout.from_mesh(genes, dims)
+    local = sharding.shard_data(data, layout.genes, device)
+    advi_density = functools.partial(logp, shard=layout.genes)
+    hmc_kw = dict(num_chains=16, num_warmup=4, num_draws=4, num_leapfrog=16)
+    windows = dict(
+        advi_step=_host_launches(lambda: fit_advi(
+            advi_density, dims.dim, torch.Generator(device=device).manual_seed(0), data=local,
+            init_mean=init, max_iter=100, tol_rel_obj=0.0, layout=layout, device=device), 100),
+        hmc_leapfrog=_host_launches(lambda: run_hmc_tree(
+            logp, dims.dim, torch.Generator(device=device).manual_seed(0), data=local,
+            dims=dims, mesh=genes, init_theta=init, device=device, **hmc_kw),
+            lambda r: r.num_leapfrog // hmc_kw["num_chains"] + 1))
+    return dict(calls=calls(vb), samplers=rows, host_launches=windows,
+                graphs_ok=all(r["ok"] for r in rows.values()),
+                calls_ok=all(rows[k][p]["calls"] == three for k in ("vb", "hmc")
+                             for p in ("graphs", "eager")))
+
+
 def _mesh_case_hmc50k(args, device):
     """(e): run_hmc_tree at genes=2 on bench_scale.py's cohort, after a
     gene-sharded ADVI warm start."""
@@ -1996,9 +2168,108 @@ def _mesh_case_hmc50k(args, device):
                 draws_finite=bool(torch.isfinite(res.draws).all()))
 
 
+def _mesh_case_cli_cards(args, device):
+    """(g): the 50k command line at --mesh genes=<world>, one rank per card,
+    through graphs and inside graphs.disabled(), writing OUT-graphs and
+    OUT-eager (rank 0 writes; the parent compares them)."""
+    import torch.distributed as dist
+
+    table, out = args
+    argv = ["--mesh", f"genes={dist.get_world_size()}", "--device", MESH_DEVICE]
+    _, row = _both_paths(lambda path: _cli_main(_cli_argv(table, f"{out}-{path}") + argv),
+                         lambda res: None,
+                         lambda res: {"cli_wall_s": res[0],
+                                      "fit_wall_s": res[1].get("variational fit")})
+    return dict(paths=row, graphs_ok=row["ok"])
+
+
+def _mesh_case_hmc_cards(args, device):
+    """(g): case (e) at genes=<world>, one rank per card: the gene-sharded
+    ADVI warm start and run_hmc_tree on bench_scale.py's cohort, through
+    graphs and inside graphs.disabled()."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.infer.advi import fit_advi
+    from ppcseq_tpu_torch.infer.hmc import run_hmc_tree
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.parallel import sharding
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    mesh = init_device_mesh(MESH_DEVICE, (dist.get_world_size(),), mesh_dim_names=("genes",))
+    counts, X, exposure, _ = synthetic_cohort(HMC50K["n_genes"], HMC50K["n_samples"],
+                                              n_check=100, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 100, device="cpu",
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    init = nb_model.smart_init(data, dims)
+    layout = sharding.Layout.from_mesh(mesh, dims)
+    local = sharding.shard_data(data, layout.genes, device)
+    logp = nb_model.flat_logp(dims)
+    warm_density = functools.partial(logp, data=local, shard=layout.genes)
+
+    def run(path):
+        gen = torch.Generator(device=device).manual_seed(1)
+        warm = fit_advi(warm_density, dims.dim, gen, init_mean=init, tol_rel_obj=0.01,
+                        learning_rate=0.3, eval_every=50, grad_samples=4, layout=layout,
+                        device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_hmc_tree(logp, dims.dim, gen, data=local, mesh=mesh, dims=dims,
+                           num_chains=HMC50K["chains"], num_warmup=HMC50K["warmup"],
+                           num_draws=HMC50K["draws"], num_leapfrog=HMC50K["L"],
+                           init_theta=warm.mean, inv_mass=torch.exp(2.0 * warm.log_sd),
+                           device=device)
+        torch.cuda.synchronize()
+        return warm, res, time.perf_counter() - t0
+
+    def extra(out):
+        warm, res, hmc_s = out
+        leapfrogs = res.num_leapfrog // HMC50K["chains"]
+        return dict(advi_iterations=warm.iterations, hmc_s=hmc_s, batched_leapfrogs=leapfrogs,
+                    ms_per_leapfrog=hmc_s / leapfrogs * 1e3, step_size=res.step_size,
+                    divergences=int(res.divergences.sum()), genes=res.genes,
+                    draws_finite=bool(torch.isfinite(res.draws).all()))
+
+    _, row = _both_paths(run, lambda out: [_fit_digest(out[0]), _digest(out[1].draws)], extra)
+    return dict(paths=row, graphs_ok=row["ok"])
+
+
+def _mesh_case_2d_cards(args, device):
+    """(g): the chains=2, genes=2 mesh, one rank per card, on the synthetic
+    cohort of (d): HMC through identify_outliers and NUTS through run_nuts
+    at NCCL_NUTS (host-decided either way), each outside and inside
+    graphs.disabled()."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch import identify_outliers
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_tidy
+
+    mesh = init_device_mesh(MESH_DEVICE, (2, 2), mesh_dim_names=("chains", "genes"))
+    df = synthetic_tidy(n_genes=64, n_samples=8, n_check=3, seed=0)
+    rows = {}
+    _, rows["hmc"] = _both_paths(
+        lambda path: identify_outliers(df, formula="~ Label", how_many_negative_controls=40,
+                                       mesh=mesh, seed=42, pass_fit=True, device=device,
+                                       approximate_posterior_inference=False,
+                                       mcmc_sampler="hmc"),
+        lambda r: [_digest(r.attrs[k].draws) for k in ("fit 1", "fit 2")])
+    counts, X, exposure, _ = synthetic_cohort(64, 8, n_check=3, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 3, device=device,
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    rows["nuts"] = _nuts_both_paths(nb_model.flat_logp(dims), data, dims, mesh, device)
+    return dict(samplers=rows, graphs_ok=all(r["ok"] for r in rows.values()))
+
+
 MESH_CASES = {
     "cli50k": _mesh_case_cli,
-    "nccl": _mesh_case_identify((1,), ("genes",), {}),
+    "nccl": _mesh_case_nccl,
     "chains": _mesh_case_identify((2,), ("chains",), dict(
         approximate_posterior_inference=False, mcmc_sampler="hmc"), against_eager=True),
     "2d": _mesh_case_identify((2, 2), ("chains", "genes"), dict(
@@ -2007,6 +2278,9 @@ MESH_CASES = {
     "chees": _mesh_case_identify((2,), ("chains",), dict(
         approximate_posterior_inference=False, mcmc_sampler="hmc", hmc_adapt_trajectory=True),
         against_eager=True),
+    "cli-cards": _mesh_case_cli_cards,
+    "hmc-cards": _mesh_case_hmc_cards,
+    "2d-cards": _mesh_case_2d_cards,
 }
 
 
@@ -2166,13 +2440,14 @@ def _mesh_cli(tmp):
 
 
 def phase_mesh(counts_df, device):
-    """The six mesh runs (a)-(f). Returns the K1 launches of all their
-    ranks and of the unsharded reference run."""
+    """The mesh runs (a)-(g). Returns the K1 launches of all their ranks and
+    of the unsharded reference run."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         k1 = _mesh_cli(tmp)
-        for case, n, label in (("nccl", 1, "(b) genes=1 NCCL, 3-gene VB"),
+        for case, n, label in (("nccl", 1, "(b) genes=1 NCCL: 3-gene VB and HMC, 15-gene "
+                                            "NUTS, through graphs and eagerly"),
                                ("chains", 2, "(c) chains=2, 3-gene HMC"),
                                ("2d", 4, "(d) chains=2,genes=2, synthetic MCMC"),
                                ("hmc50k", 2, "(e) run_hmc_tree genes=2, 50k x 100"),
@@ -2182,7 +2457,8 @@ def phase_mesh(counts_df, device):
                                 "chains", "draws_finite", "step_size", "advi_iterations",
                                 "advi_s", "hmc_s", "draws_per_s", "hmc_draws_per_s",
                                 "leapfrog_steps", "graphs_bitwise_eager",
-                                "graphs_launches_equal", "graphs_against_eager")
+                                "graphs_launches_equal", "graphs_against_eager", "samplers",
+                                "host_launches", "graphs_ok")
                     if k in recs[0]]
             row = dict(run=label, torchrun_wall_s=wall,
                        **_per_rank(recs, "backend", "wall_s", "peak_device_bytes", "k1_shapes",
@@ -2195,6 +2471,9 @@ def phase_mesh(counts_df, device):
                     raise AssertionError(f"mesh {case}: calls {r['calls']} differ from (0, 1, 0)")
                 if case == "nccl" and "nccl" not in r["backend"]:
                     raise AssertionError(f"mesh nccl: backend {r['backend']}")
+                if case == "nccl" and not (r["graphs_ok"] and r["calls_ok"]):
+                    raise AssertionError(f"mesh nccl: a graph run is not its eager run's, or "
+                                         f"the calls differ from (0, 1, 0): {r['samplers']}")
                 if case == "chains" and any(d > 0.02 * t for d, t in zip(r["divergences"],
                                                                         r["transitions"])):
                     raise AssertionError(f"mesh chains: divergences {r['divergences']}")
@@ -2215,6 +2494,57 @@ def phase_mesh(counts_df, device):
                         raise AssertionError(f"mesh {case}: not one all-reduce per "
                                              f"evaluation: {bad}")
             k1 += sum(r["launches"]["nb_glm_delta"] for r in recs)
+        k1 += phase_mesh_cards(tmp)
+    return k1
+
+
+CARDS_MAX = 4  # (g)'s largest genes axis
+
+
+def phase_mesh_cards(tmp):
+    """(g): one rank per card under NCCL, where the machine has two cards
+    or more: the 50k command line at --mesh genes=N and case (e)'s
+    run_hmc_tree at genes=N, for N = 2 and N = min(cards, CARDS_MAX), and
+    with four cards the chains=2, genes=2 mesh's HMC and NUTS, each outside
+    and inside graphs.disabled(): the two must be bitwise equal, with equal
+    launches and all-reduces, and one "logp" all-reduce per K1 launch. With one card it prints that it did not run. Returns the K1
+    launches of its ranks."""
+    import torch
+
+    from ppcseq_tpu_torch.infer import graphs
+    from ppcseq_tpu_torch.ops import _build
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_tidy
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase mesh (g) did not run: torch.cuda.device_count() = {cards}, and one rank "
+              "per card under NCCL needs two cards", flush=True)
+        return 0
+    _build.load_all([graphs.COND_SOURCE])  # the ranks load it
+    table = os.path.join(tmp, "cohort.parquet")
+    if not os.path.exists(table):
+        synthetic_tidy(**CLI_COHORT).to_parquet(table)
+    k1 = 0
+    n_max = min(cards, CARDS_MAX)
+    runs = [(n, case) for n in sorted({2, n_max}) for case in ("cli-cards", "hmc-cards")]
+    runs += [(4, "2d-cards")] if n_max >= 4 else []
+    for n, case in runs:
+        out = os.path.join(tmp, f"{case}-{n}")
+        recs, wall = _torchrun(n, case, tmp, *((table, out) if case == "cli-cards" else ()))
+        row = dict(run=f"(g) {case} over {n} cards, one rank per card", torchrun_wall_s=wall,
+                   **_per_rank(recs, "backend", "wall_s", "peak_device_bytes", "graphs_ok",
+                               *[k for k in ("paths", "samplers") if k in recs[0]]),
+                   collectives=_collectives_row(recs))
+        if case == "cli-cards":
+            csvs = [open(os.path.join(f"{out}-{path}", "sample_wise_data.csv"), "rb").read()
+                    for path in ("graphs", "eager")]
+            row["csv_bytes_equal"] = csvs[0] == csvs[1]
+        print("phase mesh " + json.dumps(row), flush=True)
+        bad = [c for c in row["collectives"] if c["logp_all_reduce"] != c["k1_launches"]]
+        if (not all(row["graphs_ok"]) or not row.get("csv_bytes_equal", True) or bad
+                or any("nccl" not in b for b in row["backend"])):
+            raise AssertionError(f"mesh {case} over {n} cards: {row}")
+        k1 += sum(r["launches"]["nb_glm_delta"] for r in recs)
     return k1
 
 
@@ -2229,9 +2559,10 @@ CHILD_RESULT = "chip_smoke child result "
 
 
 def _run_child(name, counts_df, device):
-    """`python3 chip_smoke.py --child nuts|e2e-nuts|cli|nuts-tree|sbc1|mesh`:
-    the phase, then one line with the launch counts of its paths, its K1
-    launches and the digests of its draws."""
+    """`python3 chip_smoke.py --child nuts|e2e-nuts|cli|nuts-tree|sbc1|mesh|cards`:
+    the phase (`cards`: phase mesh's (g) alone), then one line with the
+    launch counts of its paths, its K1 launches and the digests of its
+    draws."""
     k1 = 0
     if name == "nuts":
         phase_nuts(counts_df, device)
@@ -2243,6 +2574,11 @@ def _run_child(name, counts_df, device):
         k1 = phase_cli(counts_df, device)
     elif name == "mesh":
         k1 = phase_mesh(counts_df, device)
+    elif name == "cards":  # (g) of phase mesh alone, for a machine of several cards
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            k1 = phase_mesh_cards(tmp)
     else:
         k1 = phase_e2e(counts_df, device, nuts_only=True)
     print(CHILD_RESULT + json.dumps({"paths": PATH_LAUNCHES, "k1_launches": k1,

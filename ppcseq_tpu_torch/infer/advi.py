@@ -38,6 +38,10 @@ vector, every evaluation reduces its value and the replicated gradients in
 one all-reduce, Adam runs on the local vector, the noise is drawn for the
 global vector and sliced, and the ELBO (entropy included), the stop rule
 and the retry decision are global, so every rank takes the same branch.
+Over an NCCL group (Layout.capturable) the sharded fit replays graphs too,
+its all-reduces inside them (the step's value-and-gradient one, the ELBO's
+sum over the ranks), as JAX's GSPMD program holds its psums; over gloo it
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -98,6 +102,15 @@ def _sharded_elbo(local_density, m, log_s, eps, layout, global_dim):
     return torch.mean(logps) + entropy
 
 
+def _elbo(log_density, m, log_s, eps, layout, global_dim):
+    """The ELBO at noise eps, under no_grad: the single-device estimate, or
+    the gene-sharded one under a `layout`."""
+    with torch.no_grad():
+        if layout is None:
+            return elbo_estimate(log_density, m, log_s, eps)
+        return _sharded_elbo(log_density, m, log_s, eps, layout, global_dim)
+
+
 def normal_noise(generator, shape, dim, layout, device, dtype):
     """Standard normals [*shape, D]: drawn for the global vector and sliced
     to the local one under a gene layout, so every rank draws the numbers of
@@ -152,8 +165,8 @@ def advi_step(params: dict, state: AdamState, eps, log_density, learning_rate: f
 
 class _EagerFit:
     """fit_advi's chunk of Adam steps and its ELBO, one op at a time: the
-    CPU's fit, the gene-sharded one and, under graphs.disabled(), the
-    card's reference."""
+    CPU's fit, the gene-sharded one over gloo and, under graphs.disabled(),
+    the card's reference."""
 
     def __init__(self, log_density, density, params, learning_rate, layout, dim):
         self.log_density, self.density = log_density, density
@@ -166,11 +179,8 @@ class _EagerFit:
                                                    self.density, self.learning_rate)
 
     def elbo(self, eps):
-        m, log_s = self.params["m"], self.params["log_s"]
-        with torch.no_grad():
-            if self.layout is None:
-                return elbo_estimate(self.log_density, m, log_s, eps)
-            return _sharded_elbo(self.log_density, m, log_s, eps, self.layout, self.dim)
+        return _elbo(self.log_density, self.params["m"], self.params["log_s"], eps, self.layout,
+                     self.dim)
 
     def result(self):
         return self.params["m"], self.params["log_s"]
@@ -185,10 +195,13 @@ class CapturedFit:
     parameters, moments and count back into their buffers; and the ELBO at
     the [elbo_samples, D] noise buffer. The step runs advi_step, the eager
     fit's function, so the two fits share their bits. `load` starts a fit:
-    its initial parameters, zero moments and count, its data."""
+    its initial parameters, zero moments and count, its data. Under a gene
+    `layout` (an NCCL group's) the buffers hold the rank's local vector, the
+    density is the layout's global one and the ELBO the sharded one, their
+    all-reduces captured with them; `dim` is the global dimension."""
 
     def __init__(self, log_density, spec, data, m, log_s, *, eval_every, grad_samples,
-                 elbo_samples, learning_rate):
+                 elbo_samples, learning_rate, layout=None, dim=None):
         kw = dict(dtype=m.dtype, device=m.device)
         self.m, self.log_s = m.clone(), log_s.clone()
         self.mu = {"m": torch.zeros_like(m), "log_s": torch.zeros_like(m)}
@@ -199,7 +212,9 @@ class CapturedFit:
         self.data = graphs.static_operand(data)
         if data is not None:
             log_density = functools.partial(_call_with_data, log_density, self.data)
-        self.density = spec.bind(log_density)
+        self.log_density = spec.bind(log_density)
+        self.density = self.log_density if layout is None else layout.density(self.log_density)
+        self.layout, self.dim = layout, dim
         self.eval_every, self.learning_rate = eval_every, learning_rate
         self.step_graph = graphs.Region(self._step, m.device, "ADVI step")
         self.elbo_graph = graphs.Region(self._elbo, m.device, "ADVI ELBO")
@@ -218,8 +233,7 @@ class CapturedFit:
             self.count.copy_(new_state.count)
 
     def _elbo(self):
-        with torch.no_grad():
-            return elbo_estimate(self.density, self.m, self.log_s, self.eps)
+        return _elbo(self.log_density, self.m, self.log_s, self.eps, self.layout, self.dim)
 
     def load(self, m, log_s, data):
         with torch.no_grad():
@@ -273,7 +287,8 @@ def fit_advi(
     the mean or the median of the last `window` relative changes drops
     below tol_rel_obj (Stan ADVI's rule). `device` defaults to the card and
     must exist (utils/device.resolve_device); there the steps replay CUDA
-    graphs, except under a gene `layout`. With a gene `layout` the
+    graphs, except under a gene `layout` that no graph can hold
+    (Layout.capturable: gloo's). With a gene `layout` the
     state is flat: the prototype is the global dimension, `log_density` the
     rank's local one, and `init_mean` global or local; the result's mean
     and log_sd are local.
@@ -297,12 +312,14 @@ def fit_advi(
     if layout is not None:
         m0 = layout.local(m0).clone()
     log_s0 = torch.full((local_dim,), float(init_log_sd), dtype=dtype, device=device)
-    if layout is None and graphs.enabled(device):
+    if graphs.enabled(device) and (layout is None or layout.capturable(device)):
         key = (log_density, spec, graphs.operand_key(data), eval_every, grad_samples,
-               elbo_samples, float(learning_rate), dim, dtype, device)
+               elbo_samples, float(learning_rate), dim, dtype, device,
+               None if layout is None else layout.key())
         fit = graphs.cached("advi", key, lambda: CapturedFit(
             log_density, spec, data, m0, log_s0, eval_every=eval_every,
-            grad_samples=grad_samples, elbo_samples=elbo_samples, learning_rate=learning_rate))
+            grad_samples=grad_samples, elbo_samples=elbo_samples, learning_rate=learning_rate,
+            layout=layout, dim=dim))
         fit.load(m0, log_s0, data)
     else:
         if data is not None:

@@ -27,6 +27,9 @@ through graphs counts what the same run counts eagerly. The launches of the
 warm-up and of the capture itself go to STATS["build_launches"] instead. A
 region that branches on the device books nothing itself: its caller counts
 on the device how often each conditional body ran and books that (`book`).
+The all-reduces a region holds (an NCCL group's, parallel/sharding.py) are
+booked in sharding.COLLECTIVES the same way, and those of its warm-up and
+capture go to STATS["build_collectives"].
 
 The cache (`cached`) keys an entry by what the caller passes: the density
 function, the static configuration, the shapes, dtype and device. The model
@@ -40,8 +43,9 @@ drops every entry (identify_outliers does at its end).
 
 `enabled(device)` says where the samplers capture: on a CUDA device. The
 CPU runs the loops eagerly, and so does every fit whose steps hold a
-collective (gloo stages it through the host); that choice is made by the
-caller's `layout`, never by catching a failure. `disabled()` runs them
+collective that no graph can hold (gloo stages it through the host); that
+choice is made by the caller's layout (sharding.Layout.capturable), never
+by catching a failure. `disabled()` runs them
 eagerly on the card too: the reference that the card tests and
 chip_smoke.py's phase graphs hold the graphs against, bit for bit.
 """
@@ -55,10 +59,14 @@ import time
 import torch
 
 from ppcseq_tpu_torch.ops import nb_kernel
+from ppcseq_tpu_torch.parallel import sharding
 
-WARMUP_RUNS = 2  # eager runs of a region on the side stream before its capture
+# eager runs of a region on the side stream before its capture (at least one:
+# an NCCL communicator's first all-reduce cannot be captured)
+WARMUP_RUNS = 2
 
-STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "build_launches": {}}
+STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "build_launches": {},
+         "build_collectives": {}}
 
 _CACHE: dict = {}  # slot -> (key, entry)
 _STREAMS: dict = {}  # (device index, "side" or "body") -> a stream of warm-ups and captures
@@ -67,7 +75,7 @@ _eager = False  # set inside disabled()
 
 
 def reset_stats() -> None:
-    STATS.update(captures=0, capture_s=0.0, replays=0, build_launches={})
+    STATS.update(captures=0, capture_s=0.0, replays=0, build_launches={}, build_collectives={})
 
 
 def enabled(device) -> bool:
@@ -210,6 +218,13 @@ def when(pred, fn) -> None:
         fn()
 
 
+def _counts() -> tuple[dict, dict]:
+    """The kernel launches and the all-reduces counted so far (the
+    collectives' seconds apart)."""
+    return (dict(nb_kernel.LAUNCHES),
+            {k: v for k, v in sharding.COLLECTIVES.items() if k != "seconds"})
+
+
 def launches_of(fn) -> dict:
     """fn(), and the kernel launches it counted."""
     before = dict(nb_kernel.LAUNCHES)
@@ -228,33 +243,47 @@ def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
 
 
+def _merge(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+
+
 class Region:
     """fn() over static tensors, captured once and replayed. fn reads and
     writes only tensors that outlive the capture; `outputs` is what the
     capture returned (static: a replay overwrites it). `launches` holds the
-    kernel launches one replay makes.
+    kernel launches one replay makes, `collectives` its all-reduces.
 
     `warmup` (default fn) is what runs eagerly before the capture: a region
     that branches on the device (`when`) warms each of its bodies up
     itself, since its own eager run may skip them. Such a region passes
-    `books=False`: a replay books no launches (`launches` is empty), its
-    caller books what the device ran."""
+    `books=False`: a replay books no launches or all-reduces (`launches`
+    and `collectives` are empty), its caller books what the device ran
+    (no such region holds an all-reduce: nuts._transition_tree)."""
 
     def __init__(self, fn, device, name, warmup=None, books=True):
-        launches = nb_kernel.LAUNCHES
-        before = dict(launches)
+        before, seconds = _counts(), sharding.COLLECTIVES["seconds"]
+        captured = {}
         t0 = time.perf_counter()
         self._graph = Capture(device, name)
         try:
             self._graph.warmup(warmup or fn, WARMUP_RUNS)
-            warm = dict(launches)
-            self.outputs = self._graph.capture(fn)
-            self.launches = _diff(launches, warm) if books else {}
+            warm = _counts()
+            with sharding.recording() as captured:
+                self.outputs = self._graph.capture(fn)
+            after = _counts()
+            self.launches = _diff(after[0], warm[0]) if books else {}
+            # an all-reduce that the capture holds is logged; one that ran
+            # (a test's stand-in for the capture runs fn) was counted
+            self.collectives = _merge(captured, _diff(after[1], warm[1])) if books else {}
         finally:
-            built = STATS["build_launches"]
-            for k, v in _diff(launches, before).items():
-                built[k] = built.get(k, 0) + v
-            launches.update(before)
+            now = _counts()
+            for built, new in ((STATS["build_launches"], _diff(now[0], before[0])),
+                               (STATS["build_collectives"],
+                                _merge(_diff(now[1], before[1]), captured))):
+                for k, v in new.items():
+                    built[k] = built.get(k, 0) + v
+            nb_kernel.LAUNCHES.update(before[0])
+            sharding.COLLECTIVES.update(before[1], seconds=seconds)
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
 
@@ -262,6 +291,7 @@ class Region:
         for _ in range(times):
             self._graph.replay()
         book(self.launches, times)
+        sharding.book(self.collectives, times)
         STATS["replays"] += times
 
 

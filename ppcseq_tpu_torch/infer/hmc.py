@@ -32,8 +32,11 @@ the eager run and no generator lives in a graph. The capture is cached per
 (density, data structure, shapes, dtype, device), the data an operand, so
 the pipeline's passes and its retry ladder replay one capture. Under a
 chains-only mesh each rank replays its own capture over its chains, the
-chain collectives staying eager. On the CPU, and under a genes axis, the
-leapfrogs run eagerly, one op at a time. The plain
+chain collectives staying eager. Under a genes axis over NCCL
+(Layout.capturable) the captured leapfrog holds its value-and-gradient
+all-reduce; the sums taken once per draw (the energy change, ChEES's chain
+statistics, the gathers) stay eager. On the CPU, and under a genes axis
+over gloo, the leapfrogs run eagerly, one op at a time. The plain
 sampler does not wait on the device: L_t is drawn on the host from a CPU
 generator, and the accept and step-size state stay on the device until the
 end of the run. The ChEES warmup reads its L_t from the device once per
@@ -76,6 +79,8 @@ ADAM_LR, ADAM_B1, ADAM_B2, ADAM_EPS = 0.05, 0.9, 0.999, 1e-8
 
 # leapfrog caps the trajectory adaptation's sampler can select
 _L_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64)
+
+_SINGLE = Layout()  # one process: every reduction is the plain local one
 
 
 def _halton_seq(n, base=2):
@@ -208,18 +213,19 @@ class CapturedTrajectory:
     """A draw's leapfrogs as replays of one captured leapfrog
     (graphs.Region) over static z, r, g, lp, eps and inv_mass buffers, the
     leapfrog writing its result back into them; the density reads the
-    static copy of the run's data. `load` starts a run (its data and
+    static copy of the run's data (the rank's shard under a genes axis,
+    whose all-reduce the capture holds). `load` starts a run (its data and
     inverse mass), `run` is eager_trajectory's trajectory. The buffers'
     first values (z, zero momentum, gradient, lp and step) make the warm-up
     runs evaluate the density at z."""
 
-    def __init__(self, log_density, data, z, inv_mass):
+    def __init__(self, log_density, data, z, inv_mass, layout=_SINGLE):
         self.z, self.r, self.g = z.clone(), torch.zeros_like(z), torch.zeros_like(z)
         self.lp = torch.zeros(z.shape[0], dtype=torch.float64, device=z.device)
         self.eps = torch.zeros((), dtype=z.dtype, device=z.device)
         self.inv_mass = inv_mass.clone()
         self.data = graphs.static_operand(data)
-        self.grad_fn = functools.partial(logp_and_grad, log_density, data=self.data)
+        self.grad_fn = layout_grad_fn(log_density, self.data, layout)
         self.graph = graphs.Region(self._leapfrog, z.device, "HMC leapfrog")
 
     def _leapfrog(self):
@@ -240,29 +246,40 @@ class CapturedTrajectory:
 
 
 def _trajectory(log_density, data, grad_fn, z, inv_mass, layout, device):
-    """The run's trajectory function: captured on the card where the state
-    has no genes axis (cached, graphs.cached), else eager. A leapfrog runs
-    no collective under a chains-only mesh (sampler_density's grad_fn is
-    the single-device one there); the chain collectives stay outside it."""
-    if layout.genes is not None or not graphs.enabled(device):
+    """The run's trajectory function: captured on the card where a graph
+    can hold the leapfrog's collectives (Layout.capturable: none without a
+    genes axis, an NCCL all-reduce with one; cached, graphs.cached), else
+    eager. `data` is the rank's (sampler_density). A leapfrog runs no
+    collective under a chains-only mesh; the chain collectives stay
+    outside it."""
+    if not (graphs.enabled(device) and layout.capturable(device)):
         return eager_trajectory(grad_fn, inv_mass)
     key = (log_density, graphs.operand_key(data), tuple(z.shape), tuple(inv_mass.shape),
-           z.dtype, z.device)
+           z.dtype, z.device, layout.key() if layout.gene_collectives else None)
     captured = graphs.cached("leapfrog", key,
-                             lambda: CapturedTrajectory(log_density, data, z, inv_mass))
+                             lambda: CapturedTrajectory(log_density, data, z, inv_mass, layout))
     captured.load(data, inv_mass)
     return captured.run
 
 
-_SINGLE = Layout()  # one process: every reduction is the plain local one
+def layout_grad_fn(log_density, data, layout):
+    """grad_fn(theta) -> (global lp, gradient) as logp_and_grad, of
+    log_density over `data`: the rank's shard under a genes axis, where
+    log_density is nb_model.flat_logp(dims), `f(theta, data, shard)`, and
+    the layout's density reduces it over the ranks."""
+    if layout.genes is None:
+        return functools.partial(logp_and_grad, log_density, data=data)
+    density = layout.density(functools.partial(log_density, data=data, shard=layout.genes))
+    return functools.partial(logp_and_grad, density)
 
 
 def sampler_density(log_density, data, mesh, dims, device, who):
-    """(layout, grad_fn) of a sampler run on `mesh` (None: one process).
-    A `genes` axis needs `dims` and `data`; log_density is then
+    """(layout, data, grad_fn) of a sampler run on `mesh` (None: one
+    process). A `genes` axis needs `dims` and `data`; log_density is then
     nb_model.flat_logp(dims): `f(theta, data, shard)` over a rank's local
     vector, and `data` the whole model data (sharded here) or the rank's
-    shard already. grad_fn(theta) -> (global lp, gradient) as logp_and_grad."""
+    shard already; the data returned is the rank's. grad_fn as
+    layout_grad_fn."""
     if mesh is None:
         layout = _SINGLE
     else:
@@ -270,12 +287,9 @@ def sampler_density(log_density, data, mesh, dims, device, who):
             raise ValueError(f"{who} over a 'genes' mesh axis needs dims= and data=")
         layout = Layout.from_mesh(mesh, dims)
     shard = layout.genes
-    if shard is None:
-        return layout, functools.partial(logp_and_grad, log_density, data=data)
-    if data.counts.shape[-1] == dims.G != shard.G_local:
+    if shard is not None and data.counts.shape[-1] == dims.G != shard.G_local:
         data = shard_data(data, shard, device)
-    density = layout.density(functools.partial(log_density, data=data, shard=shard))
-    return layout, functools.partial(logp_and_grad, density)
+    return layout, data, layout_grad_fn(log_density, data, layout)
 
 
 def dual_average(log_eps_avg, h_sum, accept_mean, i, mu, target_accept):
@@ -463,7 +477,7 @@ def run_hmc(
     the card and must exist (utils/device.resolve_device).
     """
     device = resolve_device(device)
-    layout, grad_fn = sampler_density(log_density, data, mesh, dims, device, "run_hmc")
+    layout, data, grad_fn = sampler_density(log_density, data, mesh, dims, device, "run_hmc")
     if adapt_trajectory and layout.genes is not None:
         raise ValueError("adapt_trajectory is not supported with a 'genes' mesh axis (the "
                          "trajectory-adaptive runner is flat-state only)")

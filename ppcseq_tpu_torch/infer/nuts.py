@@ -42,7 +42,9 @@ doubling, the leaf). Who decides which step runs next:
   still active" before each leaf but the first (a collective over the
   chains axis under a mesh), one host sync each, and calls the same steps
   eagerly. This is the reference that the device-decided run is held
-  against bit for bit.
+  against bit for bit. Under a mesh the device cannot decide: a leaf's
+  all-reduces would sit inside a conditional node's body, and NCCL's
+  all-reduce over two ranks or more is refused there (`_transition_tree`).
 NUTSResult.host_syncs counts the reads either way. The step-size search's
 step is captured too. The capture is cached per (density, data
 structure, chains, D, dtype, device, max_depth, stride), the data an
@@ -500,7 +502,12 @@ class CapturedTree(_Tree):
 
 def _transition_tree(log_density, data, grad_fn, z, max_depth, layout, device):
     """The run's _Tree: the device-decided CapturedTree on the card without a
-    mesh (cached, graphs.cached; STRIDE steps per replay), else eager."""
+    mesh (cached, graphs.cached; STRIDE steps per replay), else eager.
+    Under any mesh the transition stays eager and host-decided, whatever
+    the groups' backend: its leaves are conditional bodies, and on the
+    card's machine (torch 2.11.0+cu128, CUDA 12.8, NCCL 2.28.9, H100s) the
+    capture of an NCCL all-reduce over two ranks or more inside one fails
+    with "invalid argument" (PERF.md §6)."""
     if layout is not _SINGLE or not graphs.enabled(device):
         return _Tree(grad_fn, z, max_depth, layout)
     key = (log_density, graphs.operand_key(data), tuple(z.shape), z.dtype, z.device, max_depth,
@@ -691,7 +698,7 @@ def run_nuts(
     D = spec.dim
     kw = dict(device=device, dtype=dtype)
     density = spec.bind(log_density)
-    layout, grad_fn = sampler_density(density, data, mesh, dims, device, "run_nuts")
+    layout, data, grad_fn = sampler_density(density, data, mesh, dims, device, "run_nuts")
     shard = layout.genes
     if layout is _SINGLE:
         draws = GeneratorDraws(generator, device, dtype)

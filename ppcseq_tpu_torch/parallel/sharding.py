@@ -39,6 +39,15 @@ through the host (two ranks on one card cannot use NCCL); NCCL reduces on
 the card. `COLLECTIVES` counts the all-reduces by purpose, their bytes and
 the host seconds spent in them; `reset_collectives()` zeroes it.
 
+CUDA graphs (infer/graphs.py) hold the all-reduces of an NCCL group, as
+JAX's compiled programs hold their psums: `Layout.capturable` says where.
+Under a capture `all_reduce` does no host work (no clock, no host copy, no
+count): it logs the all-reduce for the Region that holds it (`recording`),
+and every replay of the Region books it in COLLECTIVES (`book`), so a run
+through graphs counts what its eager run counts, the seconds apart. NCCL
+cannot set up a communicator during a capture: a group's first all-reduce
+is an eager one, which every Region's warm-up runs before its capture.
+
 Without a mesh nothing here runs: the samplers' default reductions are
 the single-device code, bit for bit.
 
@@ -51,6 +60,7 @@ the log joint's standard-normal pseudo-prior.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, replace
 from functools import cached_property
@@ -80,11 +90,50 @@ def _stages_through_host(group) -> bool:
     return "nccl" not in str(dist.get_backend(group))
 
 
+_captured = None  # the all-reduces of the capture under way ({COLLECTIVES key: count})
+
+
+@contextlib.contextmanager
+def recording():
+    """A log of the all-reduces that a CUDA graph captures inside the block,
+    in COLLECTIVES' keys (the seconds apart), for the Region that holds
+    them."""
+    global _captured
+    before, _captured = _captured, {}
+    try:
+        yield _captured
+    finally:
+        _captured = before
+
+
+def _tally(into: dict, kind: str, nbytes: int) -> None:
+    for k, v in (("all_reduce", 1), ("bytes", nbytes), (kind, 1), (f"{kind}_bytes", nbytes)):
+        into[k] = into.get(k, 0) + v
+
+
+def book(counts: dict, times: int) -> None:
+    """Add `times` x `counts` (a recording's, or any COLLECTIVES keys but
+    the seconds) to COLLECTIVES: the all-reduces of a graph replayed
+    `times` times."""
+    for k, v in counts.items():
+        COLLECTIVES[k] += v * times
+
+
 def all_reduce(buf: torch.Tensor, group, kind: str) -> torch.Tensor:
     """Sum `buf` over `group` in place (counted under `kind`); a CUDA buffer
-    goes through the host when the group's backend is gloo."""
+    goes through the host when the group's backend is gloo. Under a CUDA
+    graph capture (an NCCL group: Layout.capturable) the all-reduce becomes
+    part of the graph and is logged for its Region (`recording`), not
+    counted."""
     import torch.distributed as dist
 
+    nbytes = buf.numel() * buf.element_size()
+    if buf.is_cuda and torch.cuda.is_current_stream_capturing():
+        if _captured is None:
+            raise RuntimeError("an all-reduce under a CUDA graph capture that is not a Region's")
+        dist.all_reduce(buf, group=group)
+        _tally(_captured, kind, nbytes)
+        return buf
     t0 = time.perf_counter()
     if buf.is_cuda and _stages_through_host(group):
         host = buf.cpu()
@@ -92,12 +141,8 @@ def all_reduce(buf: torch.Tensor, group, kind: str) -> torch.Tensor:
         buf.copy_(host)
     else:
         dist.all_reduce(buf, group=group)
-    nbytes = buf.numel() * buf.element_size()
     COLLECTIVES["seconds"] += time.perf_counter() - t0
-    COLLECTIVES["all_reduce"] += 1
-    COLLECTIVES["bytes"] += nbytes
-    COLLECTIVES[kind] += 1
-    COLLECTIVES[f"{kind}_bytes"] += nbytes
+    _tally(COLLECTIVES, kind, nbytes)
     return buf
 
 
@@ -263,6 +308,25 @@ class Layout:
     @property
     def chain_collectives(self) -> bool:
         return self.chains_group is not None
+
+    def key(self):
+        """What a cached graph of this layout's collectives depends on: the
+        gene shard and the groups, equal for every Layout of one mesh and
+        dims (from_mesh makes a new Layout per run)."""
+        g = self.genes
+        shard = None if g is None else (g.dims, g.rank, g.size, g.group)
+        return shard, self.chains_rank, self.chains_size, self.chains_group
+
+    def capturable(self, device) -> bool:
+        """Whether a CUDA graph on `device` can hold the collectives of a
+        fit's step (an ADVI step or ELBO, a leapfrog): those over the genes
+        group, which must then be NCCL's on a CUDA device (gloo stages a
+        CUDA buffer through the host, which no capture can hold). The chain
+        collectives run between the steps, eagerly. A sampler takes its
+        graph route by this predicate alone."""
+        if not self.gene_collectives:
+            return True
+        return torch.device(device).type == "cuda" and not _stages_through_host(self.genes.group)
 
     def local(self, x):
         """The local coordinates of a global vector x[..., D]; x itself if

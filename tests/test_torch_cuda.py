@@ -894,6 +894,81 @@ def test_sharded_density_through_k1_in_a_one_rank_nccl_group(tmp_path, monkeypat
         dist.destroy_process_group()
 
 
+def test_sharded_samplers_through_graphs_in_a_one_rank_nccl_group(tmp_path):
+    """The test above's world of one under NCCL, driven through the
+    samplers: gene-sharded fit_advi and run_hmc_tree over the `genes` axis
+    take the graph route (Layout.capturable), their all-reduces inside the
+    graphs, and run_nuts over a ("chains", "genes") mesh stays host-decided
+    (nuts._transition_tree: NCCL refuses an all-reduce inside a conditional
+    body over several ranks). Each is bitwise its graphs.disabled() run,
+    with equal K1 launches and equal all-reduces by kind (the host seconds
+    apart), one "logp" all-reduce per K1 launch, and captures only through
+    graphs and only where the route is the graph one."""
+    _needs_card()
+    import functools
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.infer.hmc import run_hmc_tree
+    from ppcseq_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        genes = init_device_mesh("cuda", (1,), mesh_dim_names=("genes",))
+        both = init_device_mesh("cuda", (1, 1), mesh_dim_names=("chains", "genes"))
+        data, dims, _, _ = _fast_case(dev)
+        layout = sharding.Layout.from_mesh(genes, dims)
+        assert layout.capturable(dev) and sharding.Layout.from_mesh(both, dims).capturable(dev)
+        local = sharding.shard_data(data, layout.genes, dev)
+        init, f = nb_model.smart_init(data, dims), nb_model.flat_logp(dims)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(0)
+
+        runs = {
+            "advi": (lambda: fit_advi(functools.partial(f, shard=layout.genes), dims.dim, gen(),
+                                      data=local, init_mean=init, layout=layout, device=dev),
+                     lambda r: (r.mean, r.log_sd, torch.as_tensor(r.elbo_trace))),
+            "hmc": (lambda: run_hmc_tree(f, dims.dim, gen(), data=data, dims=dims, mesh=genes,
+                                         num_chains=16, num_warmup=10, num_draws=6,
+                                         num_leapfrog=8, init_theta=init, device=dev),
+                    lambda r: (r.draws, torch.as_tensor(r.accept_prob))),
+            "nuts": (lambda: run_nuts(f, dims.dim, gen(), data=data, dims=dims, mesh=both,
+                                      num_chains=4, num_warmup=24, num_draws=8, max_depth=8,
+                                      init_theta=init, device=dev),
+                     lambda r: (r.draws, *(torch.as_tensor(getattr(r, k)) for k in (
+                         "accept_prob", "step_size", "inv_mass")))),
+        }
+        for name, (run, parts) in runs.items():
+            out = {}
+            for path in ("eager", "graphs"):
+                nb_kernel.reset_launches()
+                sharding.reset_collectives()
+                graphs.reset_stats()
+                if path == "eager":
+                    with graphs.disabled():
+                        res = run()
+                else:
+                    res = run()
+                torch.cuda.synchronize()
+                out[path] = (parts(res), {k: v for k, v in nb_kernel.LAUNCHES.items() if v},
+                             {k: v for k, v in sharding.COLLECTIVES.items()
+                              if v and k != "seconds"}, graphs.STATS["captures"])
+            graphs.release()
+            (want, want_n, want_c, eager_captures), (got, got_n, got_c, captures) = (
+                out["eager"], out["graphs"])
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+            assert got_n == want_n and set(got_n) == {"nb_glm_delta"}, name
+            assert got_c == want_c and got_c["logp"] == got_n["nb_glm_delta"], name
+            assert eager_captures == 0 and (captures == 0) == (name == "nuts"), name
+    finally:
+        dist.destroy_process_group()
+
+
 def _eager_and_graphs(run):
     """run() eagerly (graphs.disabled()) and through graphs: both results
     and the kernel launches each counted."""

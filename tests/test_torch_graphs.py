@@ -22,6 +22,7 @@ from ppcseq_tpu_torch.infer.advi import adam_init, advi_step, fit_advi, vb_itera
 from ppcseq_tpu_torch.model import nb_model
 from ppcseq_tpu_torch.model.params import state_spec
 from ppcseq_tpu_torch.ops import nb_kernel
+from ppcseq_tpu_torch.parallel import sharding
 from ppcseq_tpu_torch.utils.convert import model_from_arrays
 
 torch.set_num_threads(2)
@@ -33,8 +34,8 @@ class _StubCapture:
     """graphs.CudaCapture's stand-in on the CPU: warm-up runs fn, capture
     records it and returns one run's outputs (the region's static ones), and
     a replay runs it again, copies its outputs into the static ones and
-    takes back the launches it counted (a graph's kernels count nothing
-    themselves)."""
+    takes back the launches and all-reduces it counted (a graph's kernels
+    and all-reduces count nothing themselves)."""
 
     def __init__(self, device, name):
         self.fn = self.outputs = None
@@ -49,9 +50,10 @@ class _StubCapture:
         return self.outputs
 
     def replay(self):
-        before = dict(nb_kernel.LAUNCHES)
+        before, collectives = dict(nb_kernel.LAUNCHES), dict(sharding.COLLECTIVES)
         out = self.fn()
         nb_kernel.LAUNCHES.update(before)
+        sharding.COLLECTIVES.update(collectives)
         if isinstance(out, torch.Tensor):
             self.outputs.copy_(out)
 
@@ -247,12 +249,12 @@ def test_run_hmc_under_a_chains_mesh_replays_the_leapfrog(chees, stub_graphs, tm
     """Under a chains-only mesh (a `chains` axis over a one-rank gloo group)
     run_hmc takes the captured leapfrog, its chain collectives (the accept
     means, ChEES's statistics, the gathers) staying eager, and draws the
-    run of graphs.disabled() bit for bit; a layout with a genes axis keeps
-    the eager leapfrogs."""
-    from types import SimpleNamespace
-
+    run of graphs.disabled() bit for bit; a genes axis over gloo (whose
+    all-reduce no graph can hold) keeps the eager leapfrogs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.parallel import sharding
 
     data, dims = _nb_case(dtype=torch.float32)
     kw = dict(data=data, num_chains=4, num_warmup=6, num_draws=4, num_leapfrog=6,
@@ -269,15 +271,16 @@ def test_run_hmc_under_a_chains_mesh_replays_the_leapfrog(chees, stub_graphs, tm
         with graphs.disabled():
             eager = hmc.run_hmc(logp, dims.dim, torch.Generator().manual_seed(5), mesh=mesh,
                                 **kw)
+        genes = sharding.Layout.from_mesh(
+            init_device_mesh("cpu", (1,), mesh_dim_names=("genes",)), dims)
+        sharded = hmc._trajectory(logp, data, None, torch.zeros((2, dims.dim)),
+                                  torch.ones(dims.dim), genes, "cpu")
     finally:
         dist.destroy_process_group()
     assert got.chains == eager.chains == (0, 4)
     assert torch.equal(got.draws, eager.draws)
     assert got.step_size == eager.step_size and got.num_leapfrog == eager.num_leapfrog
     assert np.array_equal(got.accept_prob, eager.accept_prob)
-    z = torch.zeros((2, dims.dim))
-    sharded = hmc._trajectory(logp, data, None, z, torch.ones(dims.dim),
-                              SimpleNamespace(genes=object()), "cpu")
     assert sharded.__name__ == "trajectory"  # eager_trajectory's
 
 
