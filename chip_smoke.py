@@ -158,7 +158,12 @@ so the exit code is non-zero):
              injected cells flagged, finite bounds, and at most 2 of the
              10,000 checked cells called otherwise than by the unsharded
              command on the same table (run in this process before it);
-             (b) genes=1 under NCCL, the 3-gene case on VB; (c) chains=2,
+             (b) genes=1 under NCCL, the 3-gene case on VB and HMC and
+             the 15-gene model's NUTS (a 1 x 1 chains x genes mesh), each
+             through graphs and inside graphs.disabled(), bitwise, NUTS
+             through strides whose steps hold their all-reduces at the
+             graph's top level, at most 0.1 host reads per evaluation;
+             (c) chains=2,
              the 3-gene case on jittered HMC, divergences <= 2%, run
              through graphs (each rank replays its captured leapfrog) and
              inside graphs.disabled(): both fits' draws bitwise equal,
@@ -1948,16 +1953,17 @@ def _mesh_case_identify(mesh_shape, names, kw, against_eager=False):
     return case
 
 
-def _both_paths(run, digest, extra=lambda res: {}, captured=True):
+def _both_paths(run, digest, extra=lambda res: {}):
     """run(path) through graphs ("graphs") and inside graphs.disabled()
     ("eager"): per path its digest (a function of the result), wall, kernel
     launches, all-reduces by kind (sharding.COLLECTIVES, the host seconds
-    apart), captures, replays and extra(result), each counted from just
-    before the run.
+    apart), those that did work and the idle ones apart, captures and their
+    seconds, replays and extra(result), each counted from just before the
+    run.
     Returns (the graph run's result, the row); the row's `ok` holds when
-    both digests, launches and all-reduces are equal, the eager run
-    captured nothing and the graph run captured where `captured` (the
-    path's route is the graph one) and nothing elsewhere."""
+    both digests, launches and working all-reduces are equal, the eager run
+    captured nothing and made no idle all-reduce, and the graph run
+    captured."""
     import contextlib
 
     import torch
@@ -1976,14 +1982,17 @@ def _both_paths(run, digest, extra=lambda res: {}, captured=True):
         with graphs.disabled() if path == "eager" else contextlib.nullcontext():
             res = run(path)
         torch.cuda.synchronize()
+        real, idle = sharding.split_idle({k: v - collectives[k] for k, v
+                                          in sharding.COLLECTIVES.items()
+                                          if v != collectives[k] and k != "seconds"})
         row[path] = dict(
             wall_s=time.perf_counter() - t0, digest=digest(res),
             launches={k: v - launches[k] for k, v in nb_kernel.LAUNCHES.items()
                       if v != launches[k]},
-            collectives={k: v - collectives[k] for k, v in sharding.COLLECTIVES.items()
-                         if v != collectives[k] and k != "seconds"},
+            collectives=real, idle_collectives=idle,
             collective_host_s=sharding.COLLECTIVES["seconds"] - collectives["seconds"],
-            captures=graphs.STATS["captures"], replays=graphs.STATS["replays"], **extra(res))
+            captures=graphs.STATS["captures"], capture_s=graphs.STATS["capture_s"],
+            replays=graphs.STATS["replays"], **extra(res))
         first = res if first is None else first
         graphs.release()
     g, e = row["graphs"], row["eager"]
@@ -1991,22 +2000,24 @@ def _both_paths(run, digest, extra=lambda res: {}, captured=True):
                launches_equal=g["launches"] == e["launches"],
                collectives_equal=g["collectives"] == e["collectives"])
     row["ok"] = (row["bitwise_equal"] and row["launches_equal"] and row["collectives_equal"]
-                 and e["captures"] == 0 and (g["captures"] > 0) == captured)
+                 and e["captures"] == 0 < g["captures"] and not e["idle_collectives"])
     return first, row
 
 
 # (b)'s and (g)'s NUTS: depth cut (max_depth 10 ran ~300 evaluations per
 # transition, 130 s eagerly at 15 genes)
 NCCL_NUTS = dict(num_chains=4, num_warmup=10, num_draws=5, max_depth=6)
+NUTS_READS = 0.1  # host reads per batched evaluation through graphs, at most
 
 
 def _nuts_both_paths(logp, data, dims, mesh, device):
-    """run_nuts over `mesh` at NCCL_NUTS from smart_init, outside and inside
-    graphs.disabled() (_both_paths): under a mesh both runs are host-decided
-    and capture nothing (nuts._transition_tree: NCCL refuses an all-reduce
-    inside a conditional body over several ranks); its draws, step sizes
-    and inverse masses, host reads and ms per batched evaluation each
-    way."""
+    """run_nuts over `mesh` at NCCL_NUTS from smart_init, through graphs
+    (nuts.CapturedTree's strides: the device decides each leaf, the
+    all-reduces at the graph's top level) and inside graphs.disabled() (the
+    host-decided tree) (_both_paths): its draws, step sizes and inverse
+    masses, host reads and ms per batched evaluation each way. `ok` also
+    needs one "logp" all-reduce per K1 launch under a genes axis and at
+    most NUTS_READS host reads per evaluation through graphs."""
     import torch
 
     from ppcseq_tpu_torch.infer.nuts import run_nuts
@@ -2026,9 +2037,15 @@ def _nuts_both_paths(logp, data, dims, mesh, device):
     _, row = _both_paths(
         lambda path: run_nuts(logp, dims.dim, torch.Generator(device=device).manual_seed(3),
                               data=data, dims=dims, mesh=mesh, init_theta=init, device=device,
-                              **NCCL_NUTS), digest, extra, captured=False)
+                              **NCCL_NUTS), digest, extra)
     for name in ("graphs", "eager"):
-        row[name]["ms_per_evaluation"] = row[name]["wall_s"] / row[name]["evaluations"] * 1e3
+        p = row[name]
+        p["ms_per_evaluation"] = p["wall_s"] / p["evaluations"] * 1e3
+        p["ms_per_evaluation_captures_apart"] = ((p["wall_s"] - p["capture_s"])
+                                                 / p["evaluations"] * 1e3)
+    g = row["graphs"]
+    row["ok"] = (row["ok"] and g["host_reads_per_evaluation"] <= NUTS_READS
+                 and g["collectives"].get("logp", 0) in (0, g["launches"].get("nb_glm_delta")))
     return row
 
 
@@ -2056,12 +2073,12 @@ def _host_launches(run, units):
 
 def _mesh_case_nccl(args, device):
     """(b): a world of one under NCCL (a genes axis, and a chains x genes
-    mesh of 1 x 1), where the sharded VB and HMC take their graph route
-    (Layout.capturable), each through graphs and inside graphs.disabled():
-    VB and HMC through identify_outliers on the 3-gene case; NUTS through
-    run_nuts on the 15-gene model with its baseline (K1), host-decided
-    either way under a mesh; then the host's launch calls per sharded ADVI
-    step and per HMC leapfrog in profiled windows, each way."""
+    mesh of 1 x 1), where the sharded samplers take their graph route
+    (Layout.capturable, NUTS Layout.all_capturable), each through graphs
+    and inside graphs.disabled(): VB and HMC through identify_outliers on
+    the 3-gene case; NUTS through run_nuts on the 15-gene model with its
+    baseline (K1), through strides; then the host's launch calls per
+    sharded ADVI step and per HMC leapfrog in profiled windows, each way."""
     import functools
 
     import torch
@@ -2238,10 +2255,31 @@ def _mesh_case_hmc_cards(args, device):
     return dict(paths=row, graphs_ok=row["ok"])
 
 
+def _mesh_case_nuts_cards(args, device):
+    """(g): run_nuts at genes=<world>, one rank per card, on bench_scale.py's
+    50,000 x 100 cohort with its baseline (case (e)'s), from smart_init at
+    NCCL_NUTS, through strides and inside graphs.disabled()."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ppcseq_tpu_torch.model import nb_model
+    from ppcseq_tpu_torch.utils.synthetic import synthetic_cohort
+
+    mesh = init_device_mesh(MESH_DEVICE, (dist.get_world_size(),), mesh_dim_names=("genes",))
+    counts, X, exposure, _ = synthetic_cohort(HMC50K["n_genes"], HMC50K["n_samples"],
+                                              n_check=100, seed=0)
+    data, dims = nb_model.prepare_data(counts, X, exposure, 100, device="cpu",
+                                       dtype=torch.float32)
+    data = nb_model.with_baseline(data, dims)
+    row = _nuts_both_paths(nb_model.flat_logp(dims), data, dims, mesh, device)
+    return dict(samplers={"nuts": row}, graphs_ok=row["ok"])
+
+
 def _mesh_case_2d_cards(args, device):
     """(g): the chains=2, genes=2 mesh, one rank per card, on the synthetic
     cohort of (d): HMC through identify_outliers and NUTS through run_nuts
-    at NCCL_NUTS (host-decided either way), each outside and inside
+    at NCCL_NUTS (through strides), each outside and inside
     graphs.disabled()."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
@@ -2281,6 +2319,7 @@ MESH_CASES = {
     "cli-cards": _mesh_case_cli_cards,
     "hmc-cards": _mesh_case_hmc_cards,
     "2d-cards": _mesh_case_2d_cards,
+    "nuts-cards": _mesh_case_nuts_cards,
 }
 
 
@@ -2368,7 +2407,8 @@ def _collectives_row(recs):
                          bytes_per_all_reduce=c["bytes"] / max(c["all_reduce"], 1),
                          bytes_per_logp_all_reduce=c["logp_bytes"] / max(c["logp"], 1),
                          by_purpose={k: c[k] for k in ("logp", "sums", "chains", "check",
-                                                       "gather")},
+                                                       "gather", "logp_idle", "sums_idle",
+                                                       "chains_idle")},
                          host_ms=c["seconds"] * 1e3,
                          host_ms_per_all_reduce=c["seconds"] * 1e3 / max(c["all_reduce"], 1)))
     return rows
@@ -2504,11 +2544,13 @@ CARDS_MAX = 4  # (g)'s largest genes axis
 def phase_mesh_cards(tmp):
     """(g): one rank per card under NCCL, where the machine has two cards
     or more: the 50k command line at --mesh genes=N and case (e)'s
-    run_hmc_tree at genes=N, for N = 2 and N = min(cards, CARDS_MAX), and
-    with four cards the chains=2, genes=2 mesh's HMC and NUTS, each outside
-    and inside graphs.disabled(): the two must be bitwise equal, with equal
-    launches and all-reduces, and one "logp" all-reduce per K1 launch. With one card it prints that it did not run. Returns the K1
-    launches of its ranks."""
+    run_hmc_tree at genes=N, for N = 2 and N = min(cards, CARDS_MAX), run_nuts
+    on the same cohort at genes=min(cards, CARDS_MAX), and with four cards
+    the chains=2, genes=2 mesh's HMC and NUTS, each outside and inside
+    graphs.disabled(): the two must be bitwise equal, with equal launches
+    and working all-reduces, and one "logp" all-reduce per K1 launch. With
+    one card it prints that it did not run. Returns the K1 launches of its
+    ranks."""
     import torch
 
     from ppcseq_tpu_torch.infer import graphs
@@ -2526,8 +2568,8 @@ def phase_mesh_cards(tmp):
         synthetic_tidy(**CLI_COHORT).to_parquet(table)
     k1 = 0
     n_max = min(cards, CARDS_MAX)
-    runs = [(n, case) for n in sorted({2, n_max}) for case in ("cli-cards", "hmc-cards")]
-    runs += [(4, "2d-cards")] if n_max >= 4 else []
+    runs = [(n_max, "nuts-cards")] + ([(4, "2d-cards")] if n_max >= 4 else [])
+    runs += [(n, case) for n in sorted({2, n_max}) for case in ("cli-cards", "hmc-cards")]
     for n, case in runs:
         out = os.path.join(tmp, f"{case}-{n}")
         recs, wall = _torchrun(n, case, tmp, *((table, out) if case == "cli-cards" else ()))

@@ -28,8 +28,12 @@ warm-up and of the capture itself go to STATS["build_launches"] instead. A
 region that branches on the device books nothing itself: its caller counts
 on the device how often each conditional body ran and books that (`book`).
 The all-reduces a region holds (an NCCL group's, parallel/sharding.py) are
-booked in sharding.COLLECTIVES the same way, and those of its warm-up and
-capture go to STATS["build_collectives"].
+booked in sharding.COLLECTIVES the same way (a branching region's by its
+caller, sharding.book_all_reduce), and those of its warm-up and capture go
+to STATS["build_collectives"]. An all-reduce sits at a graph's top level:
+NCCL refuses one over two ranks or more inside a conditional body, and
+sharding.all_reduce raises while a body is being captured (`when` marks
+it, under a real capture or a test's stand-in).
 
 The cache (`cached`) keys an entry by what the caller passes: the density
 function, the static configuration, the shapes, dtype and device. The model
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 
 import torch
@@ -70,7 +75,7 @@ STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "build_launches": {},
 
 _CACHE: dict = {}  # slot -> (key, entry)
 _STREAMS: dict = {}  # (device index, "side" or "body") -> a stream of warm-ups and captures
-_capturing = None  # the CudaCapture whose capture is under way
+_capturing = None  # the Capture whose capture is under way (set by Region)
 _eager = False  # set inside disabled()
 
 
@@ -163,14 +168,9 @@ class CudaCapture:
         current.wait_stream(stream)
 
     def capture(self, fn):
-        global _capturing
         try:
             with torch.cuda.graph(self.graph, pool=self.pool, stream=_side_stream(self.device)):
-                _capturing = self
-                try:
-                    return fn()
-                finally:
-                    _capturing = None
+                return fn()
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of the {self.name} failed: {e}") from e
 
@@ -190,7 +190,8 @@ class CudaCapture:
                f"an IF node of the {self.name}")
         _route(index, self.pool, torch._C._cuda_beginAllocateToPool)
         try:
-            with torch.cuda.stream(body), nb_kernel.ticket_of(parent):
+            with (torch.cuda.stream(body), nb_kernel.ticket_of(parent),
+                  sharding.conditional_body(f"an IF node's body of the {self.name}")):
                 fn()
         finally:
             _route(index, self.pool, torch._C._cuda_beginAllocateCurrentStreamToPool)
@@ -208,14 +209,18 @@ def when(pred, fn) -> None:
     Region's capture, an IF node of its graph whose body is fn's capture
     (CudaCapture.if_node): a replay runs the body or skips it by pred's
     value at that point of the replay. Otherwise (eagerly, on the CPU) the
-    host reads pred. Nothing catches a failure: a failed IF node raises,
-    and so does the capture around it."""
+    host reads pred; inside a Region's capture by a stand-in for the CUDA
+    graph, fn runs as the body's capture would, no all-reduce allowed.
+    Nothing catches a failure: a failed IF node raises, and so does the
+    capture around it."""
     if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         if _capturing is None:
             raise RuntimeError("graphs.when under a CUDA graph capture that is not a Region's")
         _capturing.if_node(pred, fn)
     elif bool(pred):
-        fn()
+        with (contextlib.nullcontext() if _capturing is None else
+              sharding.conditional_body(f"a conditional body of the {_capturing.name}")):
+            fn()
 
 
 def _counts() -> tuple[dict, dict]:
@@ -258,9 +263,10 @@ class Region:
     itself, since its own eager run may skip them. Such a region passes
     `books=False`: a replay books no launches or all-reduces (`launches`
     and `collectives` are empty), its caller books what the device ran
-    (no such region holds an all-reduce: nuts._transition_tree)."""
+    (nuts.CapturedTree)."""
 
     def __init__(self, fn, device, name, warmup=None, books=True):
+        global _capturing
         before, seconds = _counts(), sharding.COLLECTIVES["seconds"]
         captured = {}
         t0 = time.perf_counter()
@@ -269,7 +275,11 @@ class Region:
             self._graph.warmup(warmup or fn, WARMUP_RUNS)
             warm = _counts()
             with sharding.recording() as captured:
-                self.outputs = self._graph.capture(fn)
+                _capturing = self._graph
+                try:
+                    self.outputs = self._graph.capture(fn)
+                finally:
+                    _capturing = None
             after = _counts()
             self.launches = _diff(after[0], warm[0]) if books else {}
             # an all-reduce that the capture holds is logged; one that ran
@@ -370,9 +380,15 @@ def cached(slot: str, key, build):
 
 def release(slot: str | None = None) -> None:
     """Drop the cached entries (of one slot, or all) and their graphs: the
-    graphs' memory pools go back to the allocator."""
+    graphs' memory pools go back to the allocator. An entry may sit in a
+    reference cycle (nuts.CapturedTree's steps are its own methods), so
+    the garbage collector frees it here: a graph that holds NCCL's
+    all-reduces must be gone before its process group is destroyed, which
+    waits for it otherwise (four H100s, NCCL 2.28.9)."""
     slots = list(_CACHE) if slot is None else [slot] if slot in _CACHE else []
     for s in slots:
         del _CACHE[s]
-    if slots and torch.cuda.is_available():
-        torch.cuda.empty_cache()
+    if slots:
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()

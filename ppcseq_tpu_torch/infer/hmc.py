@@ -182,6 +182,11 @@ def logp_and_grad(log_density, z, data=None):
         zg = z.detach().requires_grad_(True)
         lp = log_density(zg) if data is None else log_density(zg, data)
         (g,) = torch.autograd.grad(lp.sum(), zg)
+    return finite(lp, g, z)
+
+
+def finite(lp, g, z):
+    """logp_and_grad's (lp, g) from a density's value and gradient at z."""
     lp = lp.detach().to(torch.float64)
     lp = torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -math.inf))
     g = torch.where(torch.isfinite(g), g.to(z.dtype), torch.zeros_like(z))

@@ -30,25 +30,28 @@ steps (a doubling's begin, a leaf, its end) read and write only them, its
 uniforms included: a transition draws all of them at its start
 (`draws.tree_uniforms`), and the steps read them at device counters (the
 doubling, the leaf). Who decides which step runs next:
-- on a CUDA device without a mesh (infer/graphs.py), the device
-  (`CapturedTree`, the counterpart of the while_loops JAX compiles in
-  _build_nuts_runners): a captured stride of STRIDE tree steps, each step
-  JAX's cond/body pair once, its begin, leaf and end each a conditional
-  node on a flag computed on the device; the host replays strides and
-  reads one word per stride (the transition is done), and the device
-  counts the bodies it ran, for the counters and the kernel launches;
-- on the CPU, under a mesh and inside graphs.disabled(), the host: it
-  reads "any chain still building" before each doubling and "any chain
-  still active" before each leaf but the first (a collective over the
-  chains axis under a mesh), one host sync each, and calls the same steps
-  eagerly. This is the reference that the device-decided run is held
-  against bit for bit. Under a mesh the device cannot decide: a leaf's
-  all-reduces would sit inside a conditional node's body, and NCCL's
-  all-reduce over two ranks or more is refused there (`_transition_tree`).
+- on a CUDA device, without a mesh or under one whose groups are all
+  NCCL's (infer/graphs.py), the device (`CapturedTree`, the counterpart
+  of the while_loops JAX compiles in _build_nuts_runners, GSPMD's psums
+  inside under a mesh): a captured stride of STRIDE tree steps, each step
+  JAX's cond/body pair once, its begin, leaf and end conditional nodes
+  on flags computed on the device; the host replays strides and reads
+  one word per stride (the transition is done), and the device counts
+  the bodies it ran, for the counters, the kernel launches and the
+  all-reduces. NCCL refuses an all-reduce over two ranks or more inside
+  a conditional node's body, so under a mesh the leaf and the end are
+  split at their reductions into parts, each a conditional node, the
+  all-reduces between them at the graph's top level (_mesh_step);
+- on the CPU, over gloo and inside graphs.disabled(), the host: it reads
+  "any chain still building" before each doubling and "any chain still
+  active" before each leaf but the first (a collective over the chains
+  axis under a mesh), one host sync each, and calls the same steps, and
+  the same parts, eagerly. This is the reference that the device-decided
+  run is held against bit for bit.
 NUTSResult.host_syncs counts the reads either way. The step-size search's
 step is captured too. The capture is cached per (density, data
-structure, chains, D, dtype, device, max_depth, stride), the data an
-operand.
+structure, chains, D, dtype, device, max_depth, stride, mesh layout), the
+data an operand.
 
 The log density, the energies and every quantity derived from energy
 differences (multinomial weights, accept statistics, the divergence test)
@@ -76,9 +79,11 @@ import numpy as np
 import torch
 
 from ppcseq_tpu_torch.infer import graphs
-from ppcseq_tpu_torch.infer.hmc import (_SINGLE, GeneratorDraws, LayoutDraws, leapfrog,
-                                        logp_and_grad, sampler_density, sampler_spec,
+from ppcseq_tpu_torch.infer.hmc import (_SINGLE, GeneratorDraws, LayoutDraws, finite,
+                                        layout_grad_fn, leapfrog, sampler_density, sampler_spec,
                                         structured_draws)
+from ppcseq_tpu_torch.parallel import sharding
+from ppcseq_tpu_torch.parallel.sharding import all_reduce, local_value_and_grad
 from ppcseq_tpu_torch.utils.device import resolve_device
 
 MAX_DELTA_ENERGY = 1000.0  # Stan's divergence threshold
@@ -96,11 +101,15 @@ def _turning_products(r_sum, r_first, r_last, inv_mass):
     return r_sum * (inv_mass * r_first), r_sum * (inv_mass * r_last)
 
 
+def _turned(to_first, to_last):
+    """The U-turn test from the two products' sums."""
+    return (to_first <= 0) | (to_last <= 0)
+
+
 def _is_turning(r_sum, r_first, r_last, inv_mass, layout=_SINGLE):
     """Generalized U-turn: rho against the velocities at both subtree ends.
     Reduces over the last axis; the others broadcast."""
-    to_first, to_last = layout.sums(_turning_products(r_sum, r_first, r_last, inv_mass))
-    return (to_first <= 0) | (to_last <= 0)
+    return _turned(*layout.sums(_turning_products(r_sum, r_first, r_last, inv_mass)))
 
 
 def _leaf_to_ckpt(i: int) -> tuple[int, int]:
@@ -151,11 +160,6 @@ class _Counters:
         self.depth_sum = 0  # a device tensor once a transition has run
         self.transitions = 0
 
-    def any(self, mask) -> bool:
-        """Whether any chain of the (global) batch has mask set."""
-        self.host_syncs += 1
-        return self.layout.any(mask)
-
 
 class _Tree:
     """One lockstep NUTS transition of every chain in fixed-shape buffers:
@@ -171,16 +175,29 @@ class _Tree:
     its calls: the counters are device tensors, and a leaf reads its
     checkpoint slot range from the device table `ckpt` and its uniform
     from row 2^d - 1 + leaf. So a capture of the steps (CapturedTree) runs
-    the eager steps' operations on the same shapes."""
+    the eager steps' operations on the same shapes.
 
-    def __init__(self, grad_fn, z, max_depth: int, layout=_SINGLE):
+    A leaf and an end are split at their reductions over the genes axis
+    (none without one): a leaf is `leaf_a` (the leapfrog up to its
+    density), the all-reduce of the density (`reduced[0]`), `leaf_b` (the
+    second half step and the leaf's dot products), the all-reduce of the
+    dots (`reduced[1]`) and `leaf_c` (the rest); an end is `end_a` (its
+    U-turn products), their all-reduce (`reduced[0]` again) and `end_b`.
+    What a part hands the next lies in `work`. A CapturedTree under a mesh
+    puts each part in a conditional node and the all-reduces between
+    them, at its graph's top level, on the same buffers, in the same order:
+    so its run sums what this run sums, element for element. Under a genes
+    axis `density` is the rank's local log density (theta -> lp, float64,
+    as nb_model's)."""
+
+    def __init__(self, grad_fn, z, max_depth: int, layout=_SINGLE, density=None):
         C, D = z.shape
         K = max_depth + 1
         dev = z.device
         kw = dict(dtype=z.dtype, device=dev)
 
-        def f64():
-            return torch.zeros(C, dtype=F64, device=dev)
+        def f64(*shape):
+            return torch.zeros(shape or (C,), dtype=F64, device=dev)
 
         def flags():
             return torch.zeros(C, dtype=torch.bool, device=dev)
@@ -189,6 +206,7 @@ class _Tree:
             return torch.zeros(C, dtype=torch.int64, device=dev)
 
         self.grad_fn, self.layout, self.max_depth = grad_fn, layout, max_depth
+        self.density = density
         self.inv_mass = torch.ones((C, D), **kw)
         self.eps = torch.zeros((C, 1), **kw)
         self.energy0 = f64()
@@ -217,6 +235,14 @@ class _Tree:
                         leaf=torch.zeros(1, dtype=torch.int64, device=dev),
                         r_ckpts=torch.zeros((C, K, D), **kw),
                         r_sum_ckpts=torch.zeros((C, K, D), **kw))
+        # the parts' hand-over: the leaf's point, momenta, gradient and log
+        # density, and the sums (whole, or their replicated part) of a
+        # leaf's 1 + 2K or an end's 2 dot products per chain
+        self.work = dict(z=torch.zeros_like(z), r=torch.zeros_like(z), g=torch.zeros_like(z),
+                         lp=f64(), sums=f64(C * (1 + 2 * K)))
+        if layout.gene_collectives:  # the genes all-reduces' buffers (Layout.reduce_local)
+            lo, hi = layout.genes.gene_block
+            self.reduced = (f64(C * (1 + lo + D - hi)), f64(C * (1 + 2 * K)))
         self.steps = {"begin": self.begin, "even": functools.partial(self.leaf, False),
                       "odd": functools.partial(self.leaf, True), "end": self.end,
                       "search": self.search}
@@ -224,6 +250,25 @@ class _Tree:
     def _u(self, what, row):
         """The uniforms [chains] of u[what] at the device index row[1]."""
         return torch.index_select(self.u[what], 0, row)[0]
+
+    def _reduce(self, j: int, kind: str) -> None:
+        """The all-reduce of reduced[j] over the genes group, if any."""
+        if self.layout.gene_collectives:
+            all_reduce(self.reduced[j], self.layout.genes.group, kind)
+
+    def _sums_local(self, xs, j: int) -> None:
+        """Layout.sums' first half of xs: the sums (or their replicated
+        part) into work["sums"], their gene part into reduced[j]."""
+        rep, gene = self.layout.sums_local(xs)
+        self.work["sums"][:rep.numel()].copy_(rep)
+        if gene is not None:
+            self.reduced[j][:gene.numel()].copy_(gene)
+
+    def _sums(self, shapes, j: int):
+        """Layout.sums' second half: the sums, of these shapes, that
+        _sums_local packed, reduced[j] all-reduced since."""
+        gene = self.reduced[j] if self.layout.gene_collectives else None
+        return self.layout.sums_finish(self.work["sums"], gene, shapes)
 
     def start_search(self, z, logp, grad, inv_mass, r):
         """The step-size search's start (nuts.py:119-131): z, its gradient
@@ -282,29 +327,69 @@ class _Tree:
 
     def leaf(self, odd: bool):
         """One batched leapfrog and JAX's subtree body (nuts.py:118-165) for
-        the chains still building the subtree (m); no other chain's state
-        changes. The leaf's dot products are one reduction: its kinetic
-        energy and, at an odd leaf, the U-turn tests against every one of
-        the max_depth + 1 checkpoint slots, counted where lo <= j <= hi
-        (JAX's masked scan). An even leaf writes slot hi, a one-hot select.
-        (lo, hi) come from the device table at the leaf counter, which the
-        leaf advances; `live` is m after the leaf."""
-        s, inv_mass = self.sub, self.inv_mass
-        m = s["active"] & ~s["turning"] & ~s["diverging"]
-        z1, r1, g1, lp1 = leapfrog(s["z"], s["r"], s["g"], s["eps"], inv_mass, self.grad_fn)
-        r_sum1 = s["r_sum"] + r1
-        lo, hi = (torch.index_select(t, 0, s["leaf"]) for t in self.ckpt)
-        quad = r1 * (inv_mass * r1)
-        ckpts = {}
+        the chains still building the subtree; its parts and all-reduces in
+        order."""
+        self.leaf_a()
+        self._reduce(0, "logp")
+        self.leaf_b(odd)
+        self._reduce(1, "sums")
+        self.leaf_c(odd)
+
+    def leaf_a(self):
+        """The leaf's leapfrog up to its density: the half step of the
+        momenta, the drift, and the log density and gradient at the new
+        point (hmc.leapfrog's order of operations), under a genes axis the
+        rank's local ones packed into reduced[0] (Layout.reduce_local)."""
+        s, w = self.sub, self.work
+        r_half = s["r"] + 0.5 * s["eps"] * s["g"]
+        z1 = s["z"] + s["eps"] * (r_half * self.inv_mass)
+        if self.layout.gene_collectives:
+            lp, g = local_value_and_grad(self.density, z1)
+            self.reduced[0].copy_(self.layout.reduce_local(lp, g))
+            _assign(w, z=z1, r=r_half, g=g)
+        else:
+            lp, g = self.grad_fn(z1)
+            _assign(w, z=z1, r=r_half, lp=lp, g=g)
+
+    def leaf_b(self, odd: bool):
+        """The leaf's global log density and gradient (under a genes axis
+        from reduced[0], as the layout's density gives them), the second
+        half step, and the leaf's dot products packed for one reduction:
+        its kinetic energy and, at an odd leaf, the U-turn tests against
+        every one of the max_depth + 1 checkpoint slots."""
+        s, w, inv_mass = self.sub, self.work, self.inv_mass
+        if self.layout.gene_collectives:
+            lp, g, _ = self.layout.reduce_finish(self.reduced[0], w["lp"], w["g"])
+            _assign(w, **dict(zip(("lp", "g"), finite(lp, g, w["z"]))))
+        r1 = w["r"] + 0.5 * s["eps"] * w["g"]
+        xs = [r1 * (inv_mass * r1)]
         if odd:
             rj = s["r_ckpts"]
-            block_sum = r_sum1[:, None, :] - s["r_sum_ckpts"] + rj
-            kin, to_first, to_last = self.layout.sums(
-                [quad, *_turning_products(block_sum, rj, r1[:, None, :], inv_mass[:, None, :])])
+            block_sum = (s["r_sum"] + r1)[:, None, :] - s["r_sum_ckpts"] + rj
+            xs += _turning_products(block_sum, rj, r1[:, None, :], inv_mass[:, None, :])
+        w["r"].copy_(r1)
+        self._sums_local(xs, 1)
+
+    def leaf_c(self, odd: bool):
+        """The rest of the leaf for the chains still building the subtree
+        (m); no other chain's state changes. An odd leaf's U-turn tests
+        count where lo <= j <= hi (JAX's masked scan); an even leaf writes
+        slot hi, a one-hot select. (lo, hi) come from the device table at
+        the leaf counter, which the leaf advances; `live` is m after the
+        leaf."""
+        s, w = self.sub, self.work
+        C, K = s["r_ckpts"].shape[:2]
+        m = s["active"] & ~s["turning"] & ~s["diverging"]
+        z1, r1, g1, lp1 = w["z"], w["r"], w["g"], w["lp"]
+        r_sum1 = s["r_sum"] + r1
+        lo, hi = (torch.index_select(t, 0, s["leaf"]) for t in self.ckpt)
+        ckpts = {}
+        if odd:
+            kin, to_first, to_last = self._sums([(C,), (C, K), (C, K)], 1)
             in_range = (self.slots >= lo) & (self.slots <= hi)
-            turned = torch.any(((to_first <= 0) | (to_last <= 0)) & in_range, dim=1)
+            turned = torch.any(_turned(to_first, to_last) & in_range, dim=1)
         else:
-            (kin,) = self.layout.sums([quad])
+            (kin,) = self._sums([(C,)], 1)
             write = (m[:, None] & (self.slots == hi))[:, :, None]
             ckpts = dict(r_ckpts=torch.where(write, r1[:, None, :], s["r_ckpts"]),
                          r_sum_ckpts=torch.where(write, r_sum1[:, None, :], s["r_sum_ckpts"]))
@@ -328,21 +413,40 @@ class _Tree:
                 live=s["active"] & ~turning & ~diverging, **ckpts)
 
     def end(self):
+        """The subtree's merge into the trajectory and the next doubling:
+        its parts and all-reduce in order."""
+        self.end_a()
+        self._reduce(0, "sums")
+        self.end_b()
+
+    def _ends(self, keys):
+        """The merged trajectory's ends ({k + "l", k + "r"} for k in keys)
+        and momentum sum, for the chains that were building."""
+        t, s, b = self.traj, self.sub, self.traj["building"]
+        right, left = b & s["go_right"], b & ~s["go_right"]
+        ends = {}
+        for k in keys:
+            ends[k + "l"] = _where(left, s[k], t[k + "l"])
+            ends[k + "r"] = _where(right, s[k], t[k + "r"])
+        return ends, t["r_sum"] + s["r_sum"]
+
+    def end_a(self):
+        """The trajectory's U-turn products over the merged ends, packed for
+        their reduction."""
+        ends, r_sum_new = self._ends("r")
+        self._sums_local(_turning_products(r_sum_new, ends["rl"], ends["rr"], self.inv_mass), 0)
+
+    def end_b(self):
         """The subtree's merge into the trajectory (biased progressive
         sampling, Stan/Betancourt) and the trajectory's U-turn test
         (nuts.py:236-263), for the chains that were building; then the
         next doubling (d + 1)."""
         t, s, b = self.traj, self.sub, self.traj["building"]
-        right, left = b & s["go_right"], b & ~s["go_right"]
-        ends = {}
-        for k in "zrg":
-            ends[k + "l"] = _where(left, s[k], t[k + "l"])
-            ends[k + "r"] = _where(right, s[k], t[k + "r"])
+        C = b.shape[0]
+        ends, r_sum_new = self._ends("zrg")
         p_new = torch.clamp(torch.exp(s["log_weight"] - t["log_weight"]), max=1.0)
         take = (self._u("merge", self.d) < p_new) & ~s["turning"] & ~s["diverging"] & b
-        r_sum_new = t["r_sum"] + s["r_sum"]
-        turned = s["turning"] | _is_turning(r_sum_new, ends["rl"], ends["rr"], self.inv_mass,
-                                            self.layout)
+        turned = s["turning"] | _turned(*self._sums([(C,), (C,)], 0))
         turning = torch.where(b, turned, t["turning"])
         diverging = torch.where(b, s["diverging"], t["diverging"])
         _assign(t, **ends, z_prop=_where(take, s["z_prop"], t["z_prop"]),
@@ -356,17 +460,27 @@ class _Tree:
                 depth=t["depth"] + b.to(torch.int64), building=~turning & ~diverging)
         self.d.add_(1)
 
+    def _any(self, counters, j: int) -> bool:
+        """Whether any chain of the global batch is still building (j = 0)
+        or still active in the subtree (j = 1): a host read, of the counts
+        of both (Layout.chain_counts: one all-reduce) under a chains axis."""
+        counters.host_syncs += 1
+        masks = [self.traj["building"], self.sub["live"]]
+        if not self.layout.chain_collectives:
+            return bool(masks[j].any())
+        return bool(self.layout.chain_counts(masks)[j] > 0)
+
     def run(self, counters):
         """The transition's doublings and leaves after `start`, decided on
         the host (nuts.py:221-265, :110-178): a doubling while any chain is
         building, a leaf while any chain is active in the subtree (at leaf
         0 every chain of `active` is: the check before the doubling)."""
         for d in range(self.max_depth):
-            if not counters.any(self.traj["building"]):
+            if not self._any(counters, 0):
                 break
             self.begin()
             for i in range(1 << d):
-                if i > 0 and not counters.any(self.sub["live"]):
+                if i > 0 and not self._any(counters, 1):
                     break
                 self.leaf(i % 2 == 1)
                 counters.evals += 1
@@ -386,6 +500,7 @@ class _Tree:
 
 STRIDE = 16  # tree steps per replay of CapturedTree's stride (PERF.md §6)
 _BODIES = ("begin", "even", "odd", "end")
+_COUNTS_BYTES = 2 * 8  # Layout.chain_counts of building and live, float64
 
 
 class CapturedTree(_Tree):
@@ -405,34 +520,49 @@ class CapturedTree(_Tree):
     done runs one, and a step after it changes nothing. The step then
     writes `status`: the transition is done (no subtree open, and d =
     max_depth or no chain building), and how many times each body ran.
-    `run` replays strides until the host reads done, one read per stride,
-    and books what the device counted. The step-size search's step is
-    captured as a region of its own. The density reads a static copy of
-    the run's data, which `load` refills."""
+    Under a mesh the step is _mesh_step. `run` replays strides until the
+    host reads done, one read per stride, and books what the device
+    counted. The step-size search's step is captured as a region of its
+    own (its all-reduces, under a genes axis, at its top level). The
+    density reads a static copy of the run's data (the rank's shard), which
+    `load` refills."""
 
-    def __init__(self, log_density, data, z, max_depth: int, stride: int = STRIDE):
+    def __init__(self, log_density, data, z, max_depth: int, stride: int = STRIDE,
+                 layout=_SINGLE):
         self.data = graphs.static_operand(data)
-        super().__init__(functools.partial(logp_and_grad, log_density, data=self.data), z,
-                         max_depth)
+        super().__init__(layout_grad_fn(log_density, self.data, layout), z, max_depth, layout,
+                         _local_density(log_density, self.data, layout))
         dev = z.device
         self.stride = stride
+        self.on_mesh = bool(layout.gene_collectives or layout.chain_collectives)
         self.in_subtree = torch.zeros((), dtype=torch.bool, device=dev)
         self.n_leaves = torch.tensor([1 << k for k in range(max_depth + 1)], device=dev)
-        # done, then the runs of each body since the transition's start
-        self.status = torch.zeros(1 + len(_BODIES), dtype=torch.int64, device=dev)
+        # done, then the runs of each body since the transition's start, then
+        # (under a mesh) the steps whose chain counts the host-decided run reads
+        self.status = torch.zeros(1 + len(_BODIES) + self.on_mesh, dtype=torch.int64, device=dev)
         ran = {name: self.status[j + 1:j + 2] for j, name in enumerate(_BODIES)}
-        opens = {"begin": True, "end": False}
+
+        def body(fn, name=None, opens=None):
+            """fn, then whether a subtree is open where fn opens or closes
+            one, and the run of the body `name` where fn completes it."""
+            def run():
+                fn()
+                if opens is not None:
+                    self.in_subtree.fill_(opens)
+                if name is not None:
+                    ran[name].add_(1)
+            return run
+
         step = self.steps
-
-        def body(name):
-            def fn():
-                step[name]()
-                if name in opens:
-                    self.in_subtree.fill_(opens[name])
-                ran[name].add_(1)
-            return fn
-
-        self.bodies = {name: body(name) for name in _BODIES}
+        self.bodies = {"begin": body(step["begin"], "begin", True),
+                       "even": body(step["even"], "even"), "odd": body(step["odd"], "odd"),
+                       "end": body(step["end"], "end", False)}
+        self.parts = {"end_a": self.end_a, "leaf_a": self.leaf_a,
+                      "end_b": body(self.end_b, "end", False),
+                      "even_b": functools.partial(self.leaf_b, False),
+                      "odd_b": functools.partial(self.leaf_b, True),
+                      "even_c": body(functools.partial(self.leaf_c, False), "even"),
+                      "odd_c": body(functools.partial(self.leaf_c, True), "odd")}
         self.body_launches = {}
         self.steps = dict(step, search=graphs.Region(self.search, dev, "NUTS search").replay)
         self._stride = graphs.Region(self._strided, dev, f"NUTS stride of {stride}",
@@ -450,8 +580,9 @@ class CapturedTree(_Tree):
 
     def _warm(self):
         """The stride's warm-up: each body once from the rewound state
-        (doubling 0, both leaf parities), recording its launches, then one
-        step, which runs no body."""
+        (doubling 0, both leaf parities; its parts and all-reduces in order
+        under a mesh), recording its launches, then one step, which runs no
+        body."""
         self._rewind()
         for name, fn in self.bodies.items():
             self.body_launches[name] = graphs.launches_of(fn)
@@ -461,6 +592,8 @@ class CapturedTree(_Tree):
     def _step(self):
         """One tree step (the class docstring's four flags, each computed
         on the device just before its body), then the done flag."""
+        if self.on_mesh:
+            return self._mesh_step()
         t, s, d, i = self.traj, self.sub, self.d, self.sub["leaf"]
         open_ = self.in_subtree
         graphs.when((~open_ & (d < self.max_depth) & t["building"].any()).reshape(()),
@@ -474,6 +607,52 @@ class CapturedTree(_Tree):
         done = ~open_ & ((d == self.max_depth) | ~t["building"].any())
         self.status[:1].copy_(done)
 
+    def _mesh_step(self):
+        """One tree step under a mesh: the end, or the begin and leaf 0, or
+        a leaf, or nothing once the transition is done, by flags computed
+        on the device from one all-reduce of the chains' counts at the
+        step's start (Layout.chain_counts; local under a genes-only mesh).
+        The bodies' parts are conditional nodes; between them, at the
+        graph's top level, the genes all-reduces: reduced[0] after the
+        leaf's density or the end's products (part a), reduced[1] after the
+        leaf's products (part b). So every step makes the same all-reduces
+        in the same order on every rank, as NCCL needs; one that no part
+        used sums a stale buffer that no part reads. `status` gets the
+        done flag of the step's start and counts the steps whose chain
+        counts _Tree.run would read: before a doubling below max_depth,
+        before a leaf after the first, until the transition is done."""
+        t, s, d, i = self.traj, self.sub, self.d, self.sub["leaf"]
+        open_ = self.in_subtree
+        building, live = self.layout.chain_counts([t["building"], s["live"]]) > 0
+        n = torch.index_select(self.n_leaves, 0, d)
+        end = (open_ & ((i == n) | ~live)).reshape(())
+        begin = (~open_ & (d < self.max_depth) & building).reshape(())
+        leaf = begin | (open_ & ~end)
+        odd = leaf & open_ & (i % 2 == 1).reshape(())
+        even = leaf & ~odd
+        read = ~self.status[:1].bool() & torch.where(open_, i < n, d < self.max_depth)
+        self.status[-1:].add_(read)
+        self.status[:1].copy_(~open_ & ~begin)
+        part = self.parts
+        graphs.when(end, part["end_a"])
+        graphs.when(begin, self.bodies["begin"])
+        graphs.when(leaf, part["leaf_a"])
+        self._top_reduce(0, leaf | end, "logp")
+        graphs.when(end, part["end_b"])
+        graphs.when(even, part["even_b"])
+        graphs.when(odd, part["odd_b"])
+        self._top_reduce(1, leaf, "sums")
+        graphs.when(even, part["even_c"])
+        graphs.when(odd, part["odd_c"])
+
+    def _top_reduce(self, j: int, used, kind: str) -> None:
+        """The step's all-reduce of reduced[j] over the genes group, if any:
+        in a capture always (a node of the graph's top level), eagerly (the
+        warm-up, a test's stand-in for the graph) where a part used it."""
+        capturing = used.is_cuda and torch.cuda.is_current_stream_capturing()
+        if self.layout.gene_collectives and (capturing or bool(used)):
+            self._reduce(j, kind)
+
     def _strided(self):
         for _ in range(self.stride):
             self._step()
@@ -485,35 +664,64 @@ class CapturedTree(_Tree):
 
     def run(self, counters):
         """Replay strides until the transition is done, reading `status`
-        once per stride; book the bodies' launches and the leaves the device
-        ran."""
+        once per stride; book the bodies' launches, the all-reduces and the
+        leaves the device ran."""
+        strides = 0
         while True:
             self._stride.replay()
+            strides += 1
             done, *ran = self.status.tolist()
             counters.host_syncs += 1
             if done:
                 break
         for name, times in zip(_BODIES, ran):
             graphs.book(self.body_launches[name], times)
+        if self.on_mesh:
+            self._book_all_reduces(strides * self.stride, *ran)
         leaves = ran[1] + ran[2]
         counters.evals += leaves
         counters.leaf_steps += leaves
 
+    def _book_all_reduces(self, steps: int, begins, evens, odds, ends, read) -> None:
+        """The all-reduces of `steps` replayed mesh steps, each under the
+        kind of the part that used it (the chain counts where _Tree.run
+        reads them; reduced[0] after a leaf's density ("logp") or an end's
+        products ("sums"); reduced[1] after a leaf's products), the rest
+        under the kind's idle one."""
+        leaves = evens + odds
+        slots = []
+        if self.layout.chain_collectives:
+            slots.append((_COUNTS_BYTES, "chains", {"chains": read}))
+        if self.layout.gene_collectives:
+            nbytes = [b.numel() * b.element_size() for b in self.reduced]
+            slots += [(nbytes[0], "logp", {"logp": leaves, "sums": ends}),
+                      (nbytes[1], "sums", {"sums": leaves})]
+        for nbytes, idle, used in slots:
+            for kind, times in used.items():
+                sharding.book_all_reduce(kind, nbytes, times)
+            sharding.book_all_reduce(f"{idle}_idle", nbytes, steps - sum(used.values()))
+
+
+def _local_density(log_density, data, layout):
+    """The rank's local log density theta -> lp under gene collectives
+    (flat_logp(dims)'s `f(theta, data, shard)` on its shard), else None."""
+    if not layout.gene_collectives:
+        return None
+    return functools.partial(log_density, data=data, shard=layout.genes)
+
 
 def _transition_tree(log_density, data, grad_fn, z, max_depth, layout, device):
-    """The run's _Tree: the device-decided CapturedTree on the card without a
-    mesh (cached, graphs.cached; STRIDE steps per replay), else eager.
-    Under any mesh the transition stays eager and host-decided, whatever
-    the groups' backend: its leaves are conditional bodies, and on the
-    card's machine (torch 2.11.0+cu128, CUDA 12.8, NCCL 2.28.9, H100s) the
-    capture of an NCCL all-reduce over two ranks or more inside one fails
-    with "invalid argument" (PERF.md §6)."""
-    if layout is not _SINGLE or not graphs.enabled(device):
-        return _Tree(grad_fn, z, max_depth, layout)
+    """The run's _Tree: the device-decided CapturedTree on the card where a
+    graph can hold every collective of its steps (Layout.all_capturable:
+    no mesh, or NCCL groups on a CUDA device; cached, graphs.cached; STRIDE
+    steps per replay), else the eager, host-decided one (the CPU, a gloo
+    mesh, graphs.disabled())."""
+    if not (graphs.enabled(device) and layout.all_capturable(device)):
+        return _Tree(grad_fn, z, max_depth, layout, _local_density(log_density, data, layout))
     key = (log_density, graphs.operand_key(data), tuple(z.shape), z.dtype, z.device, max_depth,
-           STRIDE)
-    tree = graphs.cached("nuts", key,
-                         lambda: CapturedTree(log_density, data, z, max_depth, STRIDE))
+           STRIDE, layout.key())
+    tree = graphs.cached("nuts", key, lambda: CapturedTree(log_density, data, z, max_depth,
+                                                           STRIDE, layout))
     tree.load(data)
     return tree
 

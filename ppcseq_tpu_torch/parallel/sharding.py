@@ -27,8 +27,8 @@ the collectives are explicit:
   kinetic energy, NUTS's U-turn dot products), the replicated part added
   once and the gene parts of every rank all-reduced, several sums in one
   all-reduce.
-- `chain_sums`, `chain_means`, `any`, `all`: decisions and statistics
-  over the global chain batch, all-reduced over the chains group, so every rank takes every
+- `chain_sums`, `chain_means`, `chain_counts`, `all`: decisions and
+  statistics over the global chain batch, all-reduced over the chains group, so every rank takes every
   branch alike (a rank that branched alone would deadlock the others).
 - `gather`: columns of the draws from every rank, as a sum of zero-filled
   buffers.
@@ -40,13 +40,20 @@ the card. `COLLECTIVES` counts the all-reduces by purpose, their bytes and
 the host seconds spent in them; `reset_collectives()` zeroes it.
 
 CUDA graphs (infer/graphs.py) hold the all-reduces of an NCCL group, as
-JAX's compiled programs hold their psums: `Layout.capturable` says where.
-Under a capture `all_reduce` does no host work (no clock, no host copy, no
-count): it logs the all-reduce for the Region that holds it (`recording`),
-and every replay of the Region books it in COLLECTIVES (`book`), so a run
-through graphs counts what its eager run counts, the seconds apart. NCCL
-cannot set up a communicator during a capture: a group's first all-reduce
-is an eager one, which every Region's warm-up runs before its capture.
+JAX's compiled programs hold their psums: `Layout.capturable` and
+`Layout.all_capturable` say where. Under a capture `all_reduce` does no host
+work (no clock, no host copy, no count): it logs the all-reduce for the
+Region that holds it (`recording`), and every replay of the Region books it
+in COLLECTIVES (`book`), so a run through graphs counts what its eager run
+counts, the seconds apart. NCCL cannot set up a communicator during a
+capture: a group's first all-reduce is an eager one, which every Region's
+warm-up runs before its capture. NCCL refuses an all-reduce over two ranks
+or more inside a conditional (IF) node's body, so an all-reduce sits at a
+graph's top level: `all_reduce` raises inside a body's capture
+(`conditional_body`). A step that decides on the device whether its bodies
+run therefore splits each reduction in two halves around the all-reduce
+(`reduce_local` / `reduce_finish`, `sums_local` / `sums_finish`), a body
+packing the buffer and a later one unpacking it.
 
 Without a mesh nothing here runs: the samplers' default reductions are
 the single-device code, bit for bit.
@@ -61,6 +68,7 @@ the log joint's standard-normal pseudo-prior.
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from dataclasses import dataclass, replace
 from functools import cached_property
@@ -73,8 +81,10 @@ from ppcseq_tpu_torch.model.nb_model import ModelData, ModelDims
 F64 = torch.float64
 N_SCALARS = 6
 
-# all-reduces (and their bytes) in all and by purpose, and their host seconds
-_KINDS = ("logp", "sums", "chains", "check", "gather")
+# all-reduces (and their bytes) in all and by purpose, and their host seconds; an
+# "_idle" kind is a graph's all-reduce at a step whose bodies did not use it
+# (nuts.CapturedTree): it sums a stale buffer that nothing reads
+_KINDS = ("logp", "sums", "chains", "check", "gather", "logp_idle", "sums_idle", "chains_idle")
 COLLECTIVES = {"all_reduce": 0, "bytes": 0, "seconds": 0.0,
                **{k: 0 for k in _KINDS}, **{f"{k}_bytes": 0 for k in _KINDS}}
 
@@ -91,6 +101,7 @@ def _stages_through_host(group) -> bool:
 
 
 _captured = None  # the all-reduces of the capture under way ({COLLECTIVES key: count})
+_body = None  # the conditional body whose capture is under way (graphs.when)
 
 
 @contextlib.contextmanager
@@ -106,9 +117,38 @@ def recording():
         _captured = before
 
 
-def _tally(into: dict, kind: str, nbytes: int) -> None:
+@contextlib.contextmanager
+def conditional_body(name: str):
+    """Mark the block as the capture of the conditional body `name`, inside
+    which all_reduce raises."""
+    global _body
+    before, _body = _body, name
+    try:
+        yield
+    finally:
+        _body = before
+
+
+def _tally(into: dict, kind: str, nbytes: int, times: int = 1) -> None:
     for k, v in (("all_reduce", 1), ("bytes", nbytes), (kind, 1), (f"{kind}_bytes", nbytes)):
-        into[k] = into.get(k, 0) + v
+        into[k] = into.get(k, 0) + v * times
+
+
+def split_idle(counts: dict) -> tuple[dict, dict]:
+    """All-reduces by kind (COLLECTIVES' keys, nonzero ones) as (those that
+    did work, their totals without the idle ones; the idle ones)."""
+    idle = {k: v for k, v in counts.items() if "_idle" in k and v}
+    working = {k: v for k, v in counts.items() if k not in idle}
+    for total, suffix in (("all_reduce", "_idle"), ("bytes", "_idle_bytes")):
+        working[total] = working.get(total, 0) - sum(v for k, v in idle.items()
+                                                     if k.endswith(suffix))
+    return {k: v for k, v in working.items() if v}, idle
+
+
+def book_all_reduce(kind: str, nbytes: int, times: int) -> None:
+    """Add `times` all-reduces of `nbytes` under `kind` to COLLECTIVES: a
+    graph's all-reduce that its caller counts on the device."""
+    _tally(COLLECTIVES, kind, nbytes, times)
 
 
 def book(counts: dict, times: int) -> None:
@@ -124,9 +164,13 @@ def all_reduce(buf: torch.Tensor, group, kind: str) -> torch.Tensor:
     goes through the host when the group's backend is gloo. Under a CUDA
     graph capture (an NCCL group: Layout.capturable) the all-reduce becomes
     part of the graph and is logged for its Region (`recording`), not
-    counted."""
+    counted. Inside a conditional body's capture it raises: NCCL refuses
+    it there over two ranks or more."""
     import torch.distributed as dist
 
+    if _body is not None:
+        raise RuntimeError(f"an all-reduce ({kind}) inside {_body}: a collective must sit at the "
+                           "CUDA graph's top level, not in a conditional node's body")
     nbytes = buf.numel() * buf.element_size()
     if buf.is_cuda and torch.cuda.is_current_stream_capturing():
         if _captured is None:
@@ -144,6 +188,20 @@ def all_reduce(buf: torch.Tensor, group, kind: str) -> torch.Tensor:
     COLLECTIVES["seconds"] += time.perf_counter() - t0
     _tally(COLLECTIVES, kind, nbytes)
     return buf
+
+
+def _nccl_on(group, device) -> bool:
+    """Whether a graph on `device` can hold `group`'s all-reduces: an NCCL
+    group on a CUDA device (gloo stages a CUDA buffer through the host,
+    which no capture can hold)."""
+    return torch.device(device).type == "cuda" and not _stages_through_host(group)
+
+
+def _nccl_on(group, device) -> bool:
+    """Whether a graph on `device` can hold `group`'s all-reduces: an NCCL
+    group on a CUDA device (gloo stages a CUDA buffer through the host,
+    which no capture can hold)."""
+    return torch.device(device).type == "cuda" and not _stages_through_host(group)
 
 
 def pad_genes(G: int, n: int) -> int:
@@ -249,6 +307,16 @@ def shard_data(data: ModelData, shard: GeneShard, device=None) -> ModelData:
                    **fields)
 
 
+def local_value_and_grad(local_density, theta):
+    """(lp, gradient) of a rank's local density at theta, by autograd:
+    nothing reduced."""
+    with torch.enable_grad():
+        t = theta.detach().requires_grad_(True)
+        lp = local_density(t)
+        (g,) = torch.autograd.grad(lp.sum(), t)
+    return lp.detach(), g
+
+
 class _Global(torch.autograd.Function):
     """The global log density from a rank's local one: the forward
     evaluates the local value and gradient and reduces both in one
@@ -256,11 +324,7 @@ class _Global(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, theta, local_density, layout):
-        with torch.enable_grad():
-            t = theta.detach().requires_grad_(True)
-            lp = local_density(t)
-            (g,) = torch.autograd.grad(lp.sum(), t)
-        lp, g, _ = layout.reduce(lp.detach(), g)
+        lp, g, _ = layout.reduce(*local_value_and_grad(local_density, theta))
         ctx.save_for_backward(g)
         return lp
 
@@ -323,10 +387,16 @@ class Layout:
         group, which must then be NCCL's on a CUDA device (gloo stages a
         CUDA buffer through the host, which no capture can hold). The chain
         collectives run between the steps, eagerly. A sampler takes its
-        graph route by this predicate alone."""
-        if not self.gene_collectives:
-            return True
-        return torch.device(device).type == "cuda" and not _stages_through_host(self.genes.group)
+        graph route by this predicate alone (NUTS by all_capturable)."""
+        return not self.gene_collectives or _nccl_on(self.genes.group, device)
+
+    def all_capturable(self, device) -> bool:
+        """Whether a CUDA graph on `device` can hold every collective of a
+        fit, those over the chains group too: NUTS's stride, whose tree
+        steps reduce over the genes and decide over the chains on the
+        device."""
+        return self.capturable(device) and (not self.chain_collectives
+                                            or _nccl_on(self.chains_group, device))
 
     def local(self, x):
         """The local coordinates of a global vector x[..., D]; x itself if
@@ -354,12 +424,24 @@ class Layout:
         `extra`. Identity without gene collectives."""
         if not self.gene_collectives:
             return lp, g, tuple(extra)
+        buf = all_reduce(self.reduce_local(lp, g, extra), self.genes.group, "logp")
+        return self.reduce_finish(buf, lp, g)
+
+    def reduce_local(self, lp, g=None, extra=()):
+        """reduce's first half: the float64 buffer that its all-reduce sums,
+        [lp, g's replicated columns, extra]."""
         lo, hi = self.genes.gene_block
         parts = [lp.to(F64).reshape(-1)]
         if g is not None:
             parts += [g[..., :lo].to(F64).reshape(-1), g[..., hi:].to(F64).reshape(-1)]
         parts += [torch.as_tensor(e, dtype=F64, device=lp.device).reshape(1) for e in extra]
-        buf = all_reduce(torch.cat(parts), self.genes.group, "logp")
+        return torch.cat(parts)
+
+    def reduce_finish(self, buf, lp, g=None):
+        """reduce's second half: (lp, g, extra) from the summed buffer, lp in
+        the shape and dtype of the local one and g the local gradient with
+        its replicated columns replaced; extra is the rest of the buffer."""
+        lo, hi = self.genes.gene_block
         n = lp.numel()
         lp_out = buf[:n].reshape(lp.shape).to(lp.dtype)
         pos = n
@@ -394,15 +476,34 @@ class Layout:
         whole (global) state; one all-reduce for all of them."""
         if not self.gene_collectives:
             return [torch.sum(x, dim=-1, dtype=F64) for x in xs]
+        rep, gene = self.sums_local(xs)
+        buf = all_reduce(gene, self.genes.group, "sums")
+        return self.sums_finish(rep, buf, [x.shape[:-1] for x in xs])
+
+    def sums_local(self, xs):
+        """sums' first half: (the replicated coordinates' sums, which the
+        rank keeps, and the gene coordinates' sums, which the all-reduce
+        sums), each one flat float64 vector of the sums in order; without
+        gene collectives (the whole sums, None)."""
+        if not self.gene_collectives:
+            return torch.cat([torch.sum(x, dim=-1, dtype=F64).reshape(-1) for x in xs]), None
         lo, hi = self.genes.gene_block
         rep = [torch.sum(x[..., :lo], dim=-1, dtype=F64) + torch.sum(x[..., hi:], dim=-1,
                                                                      dtype=F64) for x in xs]
         gene = [torch.sum(x[..., lo:hi], dim=-1, dtype=F64) for x in xs]
-        buf = all_reduce(torch.cat([t.reshape(-1) for t in gene]), self.genes.group, "sums")
+        return (torch.cat([t.reshape(-1) for t in rep]),
+                torch.cat([t.reshape(-1) for t in gene]))
+
+    def sums_finish(self, rep, buf, shapes):
+        """sums' second half: the sums of the given shapes from the kept
+        part and the summed gene part (None: no gene collectives), each at
+        least as long as the shapes' elements."""
         out, pos = [], 0
-        for r, t in zip(rep, gene):
-            out.append(r + buf[pos:pos + t.numel()].reshape(t.shape))
-            pos += t.numel()
+        for shape in shapes:
+            n = math.prod(shape)
+            part = rep[pos:pos + n].reshape(shape)
+            out.append(part if buf is None else part + buf[pos:pos + n].reshape(shape))
+            pos += n
         return out
 
     def dot(self, a, b):
@@ -434,12 +535,16 @@ class Layout:
         """Mean of x[chains_local] over the global chain batch."""
         return self.chain_means([x])[0]
 
-    def any(self, mask) -> bool:
-        """Whether any chain of the global batch has mask set."""
+    def chain_counts(self, masks):
+        """[how many chains of the global batch have m set, for m in masks],
+        one float64 tensor on the device: one all-reduce over the chains
+        group. Without one every rank holds every chain (under a genes-only
+        mesh each rank's flags come from all-reduced sums, so the ranks
+        agree), and the counts are the local ones."""
+        counts = torch.stack([m.sum(dtype=F64) for m in masks])
         if not self.chain_collectives:
-            return bool(mask.any())
-        buf = all_reduce(mask.sum(dtype=F64).reshape(1), self.chains_group, "chains")
-        return bool(buf[0] > 0)
+            return counts
+        return all_reduce(counts, self.chains_group, "chains")
 
     def all(self, flag: bool, device) -> bool:
         """A rank-local flag, true on every rank of the fit."""

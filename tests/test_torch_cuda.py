@@ -898,12 +898,13 @@ def test_sharded_samplers_through_graphs_in_a_one_rank_nccl_group(tmp_path):
     """The test above's world of one under NCCL, driven through the
     samplers: gene-sharded fit_advi and run_hmc_tree over the `genes` axis
     take the graph route (Layout.capturable), their all-reduces inside the
-    graphs, and run_nuts over a ("chains", "genes") mesh stays host-decided
-    (nuts._transition_tree: NCCL refuses an all-reduce inside a conditional
-    body over several ranks). Each is bitwise its graphs.disabled() run,
-    with equal K1 launches and equal all-reduces by kind (the host seconds
-    apart), one "logp" all-reduce per K1 launch, and captures only through
-    graphs and only where the route is the graph one."""
+    graphs, and run_nuts over a ("chains", "genes") mesh the device-decided
+    one (Layout.all_capturable: nuts.CapturedTree's strides, the chain
+    counts' and the genes all-reduces at the graph's top level, between
+    the conditional parts of each tree step). Each is bitwise its
+    graphs.disabled() run, with equal K1 launches and equal all-reduces by
+    kind (the host seconds and NUTS's idle all-reduces apart), one "logp"
+    all-reduce per K1 launch, and captures only through graphs."""
     _needs_card()
     import functools
 
@@ -922,7 +923,7 @@ def test_sharded_samplers_through_graphs_in_a_one_rank_nccl_group(tmp_path):
         both = init_device_mesh("cuda", (1, 1), mesh_dim_names=("chains", "genes"))
         data, dims, _, _ = _fast_case(dev)
         layout = sharding.Layout.from_mesh(genes, dims)
-        assert layout.capturable(dev) and sharding.Layout.from_mesh(both, dims).capturable(dev)
+        assert layout.capturable(dev) and sharding.Layout.from_mesh(both, dims).all_capturable(dev)
         local = sharding.shard_data(data, layout.genes, dev)
         init, f = nb_model.smart_init(data, dims), nb_model.flat_logp(dims)
 
@@ -955,16 +956,18 @@ def test_sharded_samplers_through_graphs_in_a_one_rank_nccl_group(tmp_path):
                 else:
                     res = run()
                 torch.cuda.synchronize()
+                working, idle = sharding.split_idle(
+                    {k: v for k, v in sharding.COLLECTIVES.items() if v and k != "seconds"})
                 out[path] = (parts(res), {k: v for k, v in nb_kernel.LAUNCHES.items() if v},
-                             {k: v for k, v in sharding.COLLECTIVES.items()
-                              if v and k != "seconds"}, graphs.STATS["captures"])
+                             working, graphs.STATS["captures"], idle)
             graphs.release()
-            (want, want_n, want_c, eager_captures), (got, got_n, got_c, captures) = (
-                out["eager"], out["graphs"])
+            want, want_n, want_c, eager_captures, eager_idle = out["eager"]
+            got, got_n, got_c, captures, idle = out["graphs"]
             assert all(torch.equal(a, b) for a, b in zip(got, want)), name
             assert got_n == want_n and set(got_n) == {"nb_glm_delta"}, name
             assert got_c == want_c and got_c["logp"] == got_n["nb_glm_delta"], name
-            assert eager_captures == 0 and (captures == 0) == (name == "nuts"), name
+            assert not eager_idle and bool(idle) == (name == "nuts"), name
+            assert eager_captures == 0 < captures, name
     finally:
         dist.destroy_process_group()
 

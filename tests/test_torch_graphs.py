@@ -38,6 +38,7 @@ class _StubCapture:
     and all-reduces count nothing themselves)."""
 
     def __init__(self, device, name):
+        self.name = name
         self.fn = self.outputs = None
 
     def warmup(self, fn, runs):

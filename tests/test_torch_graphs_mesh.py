@@ -1,19 +1,22 @@
 """The samplers' CUDA-graph routes under a mesh (ppcseq_tpu_torch.infer:
-advi.CapturedFit and hmc.CapturedTrajectory over a
-parallel/sharding.Layout; NUTS's host-decided route) on the CPU, with
-tests/test_torch_graphs.py's stub standing in for torch.cuda.CUDAGraph.
+advi.CapturedFit, hmc.CapturedTrajectory and nuts.CapturedTree over a
+parallel/sharding.Layout) on the CPU, with tests/test_torch_graphs.py's
+stub standing in for torch.cuda.CUDAGraph.
 
 A one-rank gloo process group stands in for an NCCL one: where a test
-patches `Layout.capturable` to True, the samplers take their graph route
-over it, the stub's replay running the all-reduces again eagerly and
-taking back the counts they make, as a graph's replay books what its
-capture holds. Each route must then draw its graphs.disabled() run's
-numbers bit for bit, with equal kernel launches and equal all-reduces by
-kind (sharding.COLLECTIVES, the host seconds apart), and capture only on
-the graph side. Without the patch a gloo mesh keeps the eager route."""
+patches `Layout.capturable` and `Layout.all_capturable` to True, the
+samplers take their graph route over it, the stub's replay running the
+all-reduces again eagerly and taking back the counts they make, as a
+graph's replay books what its capture holds. Each route must then draw
+its graphs.disabled() run's numbers bit for bit, with equal kernel
+launches and equal all-reduces by kind (sharding.COLLECTIVES, the host
+seconds apart, and NUTS's idle all-reduces, which only a graph makes,
+apart too), and capture only on the graph side. Without the patch a gloo
+mesh keeps the eager route."""
 
 import contextlib
 import functools
+import weakref
 
 import numpy as np
 import pytest
@@ -44,12 +47,16 @@ def _mesh(*names):
     return init_device_mesh("cpu", (1,) * len(names), mesh_dim_names=names)
 
 
+_CAPTURABLE = sharding.Layout.capturable, sharding.Layout.all_capturable
+
+
 @pytest.fixture
 def capturable(monkeypatch):
     """The graph route on the CPU over the gloo meshes: the stub for the
     CUDA graph, and every layout capturable."""
     _stub(monkeypatch)
     monkeypatch.setattr(sharding.Layout, "capturable", lambda self, device: True)
+    monkeypatch.setattr(sharding.Layout, "all_capturable", lambda self, device: True)
     graphs.release()
     graphs.reset_stats()
     yield
@@ -71,7 +78,10 @@ def _counting(logp, kernel="nb_glm_delta"):
 
 def _both(run):
     """run() through the graph route and inside graphs.disabled(): each
-    path's (result, kernel launches, all-reduces by kind, captures)."""
+    path's (result, kernel launches, all-reduces by kind, captures,
+    replays). Returns the graph route's result and the eager one's, the
+    graph route's all-reduces by kind (its idle ones too) and launches, and
+    its replays."""
     out = {}
     for path in ("graphs", "eager"):
         nb_kernel.reset_launches()
@@ -81,16 +91,17 @@ def _both(run):
             res = run()
         out[path] = (res, {k: v for k, v in nb_kernel.LAUNCHES.items() if v},
                      {k: v for k, v in sharding.COLLECTIVES.items() if v and k != "seconds"},
-                     graphs.STATS["captures"])
+                     graphs.STATS["captures"], graphs.STATS["replays"])
         graphs.release()
     nb_kernel.reset_launches()
     sharding.reset_collectives()
-    (_, launches, collectives, captures), (_, e_launches, e_collectives, e_captures) = (
-        out["graphs"], out["eager"])
+    (_, launches, collectives, captures, replays), (_, e_launches, e_collectives, e_captures,
+                                                     _) = out["graphs"], out["eager"]
     assert launches == e_launches and launches
-    assert collectives == e_collectives
+    working, e_idle = sharding.split_idle(collectives)[0], sharding.split_idle(e_collectives)[1]
+    assert working == e_collectives and not e_idle
     assert e_captures == 0 < captures
-    return out["graphs"][0], out["eager"][0], collectives, launches
+    return out["graphs"][0], out["eager"][0], collectives, launches, replays
 
 
 def test_a_region_books_the_all_reduces_its_capture_holds(capturable):
@@ -121,7 +132,7 @@ def test_gene_sharded_advi_through_graphs_is_the_eager_fit(capturable):
     local = sharding.shard_data(data, layout.genes)
     f = functools.partial(_counting(nb_model.flat_logp(dims)), shard=layout.genes)
     kw = dict(_fit_kw(data, dims), data=local, layout=layout)
-    got, eager, collectives, launches = _both(
+    got, eager, collectives, launches, _ = _both(
         lambda: fit_advi(f, dims.dim, torch.Generator().manual_seed(4), **kw))
     assert _same_fit(got, eager)
     assert collectives["logp"] == launches["nb_glm_delta"] == collectives["all_reduce"]
@@ -141,7 +152,7 @@ def test_hmc_over_a_mesh_through_graphs_is_the_eager_run(axes, chees, capturable
               num_leapfrog=6, init_theta=nb_model.smart_init(data, dims),
               adapt_trajectory=chees, device="cpu")
     f = _counting(nb_model.flat_logp(dims))
-    got, eager, collectives, launches = _both(
+    got, eager, collectives, launches, _ = _both(
         lambda: hmc.run_hmc(f, dims.dim, torch.Generator().manual_seed(5), **kw))
     assert torch.equal(got.draws, eager.draws)
     assert got.step_size == eager.step_size and got.num_leapfrog == eager.num_leapfrog
@@ -154,27 +165,73 @@ def test_hmc_over_a_mesh_through_graphs_is_the_eager_run(axes, chees, capturable
 
 @pytest.mark.parametrize("axes", [("chains",), ("genes",), ("chains", "genes")],
                          ids=["chains", "genes", "chains-genes"])
-def test_nuts_over_a_mesh_stays_host_decided(axes, capturable):
-    """NUTS's leaves are conditional bodies, and the card's NCCL refuses an
-    all-reduce over several ranks inside one (PERF.md §6): under any
-    mesh, capturable or not, the transition's tree is the eager,
-    host-decided one, and a short run captures nothing; without a mesh it
-    is the device-decided CapturedTree."""
+def test_nuts_over_a_mesh_through_strides_is_the_eager_run(axes, capturable, monkeypatch):
+    """Under a mesh whose groups a graph can hold, the transition's tree is
+    the device-decided CapturedTree (its mesh step: the chain counts'
+    all-reduce at each step's start, the genes all-reduces between the
+    conditional parts of the leaf and the end). A short run_nuts through
+    strides of 1, 3 and 16 tree steps draws its graphs.disabled() run's
+    draws, step sizes and inverse masses bit for bit, with equal K1
+    launches and equal all-reduces by kind (one "logp" per K1 launch under
+    a genes axis), reads the host once per stride replayed (the replays
+    but the search's eight), and books idle all-reduces only through
+    graphs; graphs.release() frees the tree. Without the patch the gloo
+    mesh keeps the host-decided tree."""
     data, dims = _nb_case()
     mesh = _mesh(*axes)
     layout = sharding.Layout.from_mesh(mesh, dims if "genes" in axes else None)
     z = torch.zeros((2, layout.genes.dim if layout.genes else dims.dim), dtype=torch.float64)
-    logp = nb_model.flat_logp(dims)
-    assert type(nuts._transition_tree(logp, data, None, z, 3, layout, "cpu")) is nuts._Tree
-    assert type(nuts._transition_tree(logp, data, None, z, 3, nuts._SINGLE, "cpu")) is (
-        nuts.CapturedTree)
+    logp = _counting(nb_model.flat_logp(dims))
+    tree = nuts._transition_tree(logp, data, None, z, 3, layout, "cpu")
+    assert type(tree) is nuts.CapturedTree
+    # release() frees the entry, its reference cycles too: no graph that
+    # holds an all-reduce may outlive the process group's destruction
+    tree = weakref.ref(tree)
     graphs.release()
-    graphs.reset_stats()
-    nuts.run_nuts(logp, dims.dim, torch.Generator().manual_seed(3), data=data, dims=dims,
-                  mesh=mesh, num_chains=2, num_warmup=2, num_draws=2, max_depth=3,
-                  init_theta=nb_model.smart_init(data, dims), device="cpu",
-                  dtype=torch.float64)
-    assert graphs.STATS["captures"] == 0
+    assert tree() is None
+    kw = dict(data=data, dims=dims, mesh=mesh, num_chains=2, num_warmup=3, num_draws=2,
+              max_depth=4, init_theta=nb_model.smart_init(data, dims), device="cpu",
+              dtype=torch.float64)
+    for stride in (1, 3, 16):
+        monkeypatch.setattr(nuts, "STRIDE", stride)
+        got, eager, collectives, launches, replays = _both(
+            lambda: nuts.run_nuts(logp, dims.dim, torch.Generator().manual_seed(3), **kw))
+        assert torch.equal(got.draws, eager.draws), stride
+        assert np.array_equal(got.step_size, eager.step_size)
+        assert np.array_equal(got.inv_mass, eager.inv_mass)
+        assert np.array_equal(got.accept_prob, eager.accept_prob)
+        assert got.num_evals == eager.num_evals == launches["nb_glm_delta"]
+        assert got.host_syncs == replays - 8
+        assert stride < 16 or 2 * got.host_syncs < eager.host_syncs
+        idle = set(sharding.split_idle(collectives)[1])
+        assert idle == ({"chains_idle", "chains_idle_bytes"} if "chains" in axes else set()) | (
+            {"logp_idle", "logp_idle_bytes", "sums_idle", "sums_idle_bytes"}
+            if "genes" in axes else set())
+        if "genes" in axes:
+            assert collectives["logp"] == launches["nb_glm_delta"]
+    for name, predicate in zip(("capturable", "all_capturable"), _CAPTURABLE):
+        monkeypatch.setattr(sharding.Layout, name, predicate)
+    assert not layout.all_capturable("cpu")
+    assert type(nuts._transition_tree(logp, data, None, z, 3, layout, "cpu")) is nuts._Tree
+
+
+def test_an_all_reduce_inside_a_conditional_body_raises(capturable):
+    """sharding.all_reduce refuses to be captured inside a graphs.when
+    body (NCCL refuses it there over two ranks or more), naming the body;
+    at a region's top level, and in a body run eagerly, it reduces."""
+    group = _mesh("genes").get_group()
+    buf = torch.ones(2, dtype=torch.float64)
+
+    def body():
+        sharding.all_reduce(buf, group, "sums")
+
+    with pytest.raises(RuntimeError, match="inside a conditional body of the test region"):
+        graphs.Region(lambda: graphs.when(torch.tensor(True), body), "cpu", "test region")
+    graphs.Region(body, "cpu", "top level").replay()
+    sharding.reset_collectives()
+    graphs.when(torch.tensor(True), body)
+    assert sharding.COLLECTIVES["sums"] == 1
+    sharding.reset_collectives()
 
 
 def test_three_gene_vb_over_a_mesh_through_graphs(capturable):
@@ -201,8 +258,9 @@ def test_a_gloo_mesh_keeps_the_eager_route(monkeypatch):
     data, dims = _nb_case()
     genes = sharding.Layout.from_mesh(_mesh("genes"), dims)
     chains = sharding.Layout.from_mesh(_mesh("chains"))
-    assert not genes.capturable("cpu")
+    assert not genes.capturable("cpu") and not genes.all_capturable("cpu")
     assert chains.capturable("cpu") and sharding.Layout().capturable("cpu")
+    assert not chains.all_capturable("cpu") and sharding.Layout().all_capturable("cpu")
     _stub(monkeypatch)
     graphs.release()
     graphs.reset_stats()

@@ -205,7 +205,8 @@ def test_one_capture_serves_equal_shapes_and_a_new_dim_replaces_it(stub_graphs):
     """Two runs of flat_logp(dims) with other data of the same shapes (a
     baseline from another like_mask) replay one capture, each drawing its
     eager run's numbers; a run at another G (another D) captures anew and
-    replaces the entry. Under a mesh layout, or inside graphs.disabled(),
+    replaces the entry. Under a layout whose collectives no graph can hold
+    (Layout.all_capturable: a gloo mesh's), or inside graphs.disabled(),
     the transition's tree is the eager one."""
     entries = []
     for seed, G in ((0, 10), (1, 10), (2, 12)):
@@ -227,7 +228,8 @@ def test_one_capture_serves_equal_shapes_and_a_new_dim_replaces_it(stub_graphs):
         return type(nuts._transition_tree(_torch_logp, None, _torch_logp_grad, z, 3, layout,
                                           "cpu"))
 
-    assert tree(SimpleNamespace(genes=None)) is nuts._Tree  # a mesh's layout
+    gloo = SimpleNamespace(all_capturable=lambda device: False, gene_collectives=False)
+    assert tree(gloo) is nuts._Tree
     with graphs.disabled():
         assert tree(nuts._SINGLE) is nuts._Tree
     assert tree(nuts._SINGLE) is nuts.CapturedTree
