@@ -76,6 +76,7 @@ class ADVIResult:
     converged: bool
     iterations: int
     spec: StateSpec | None = field(default=None, repr=False)  # the state's layout
+    attempts: int = 1  # vb_iterative's fits until this one succeeded
 
     def flat(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, log_sd) as [D] vectors."""
@@ -414,6 +415,7 @@ def vb_iterative(
         if layout is not None:
             finite_mean = layout.all(finite_mean, res.mean.device)
         if np.isfinite(res.elbo) and res.elbo > min_elbo and finite_mean:
+            res.attempts = attempt + 1
             return res
         last = res
         print(f"Further attempt with Variational Bayes: attempt {attempt + 1} failed")

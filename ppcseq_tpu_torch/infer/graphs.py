@@ -43,7 +43,10 @@ the data's tensors and every fit copies its data into them
 pipeline's two passes (other like_mask and baseline, same shapes) and
 vb_iterative's retries replay one capture. Each slot holds one entry: a new
 key drops the old entry and frees its graphs' memory pools. `release()`
-drops every entry (identify_outliers does at its end).
+drops every entry (identify_outliers does at its end). Each region's
+warm-up and capture is a span `capture <name>` (utils/log.py), and
+`counters()` / `counters_since()` give what identify_outliers's root span
+records.
 
 `enabled(device)` says where the samplers capture: on a CUDA device. The
 CPU runs the loops eagerly, and so does every fit whose steps hold a
@@ -65,6 +68,7 @@ import torch
 
 from ppcseq_tpu_torch.ops import nb_kernel
 from ppcseq_tpu_torch.parallel import sharding
+from ppcseq_tpu_torch.utils.log import timed
 
 # eager runs of a region on the side stream before its capture (at least one:
 # an NCCL communicator's first all-reduce cannot be captured)
@@ -237,6 +241,20 @@ def launches_of(fn) -> dict:
     return _diff(nb_kernel.LAUNCHES, before)
 
 
+def counters() -> dict:
+    """The graph counters of STATS (captures, replays) and
+    nb_kernel.LAUNCHES by kernel, as they stand."""
+    return {"captures": STATS["captures"], "replays": STATS["replays"],
+            "launches": dict(nb_kernel.LAUNCHES)}
+
+
+def counters_since(before: dict) -> dict:
+    """What counters() grew by since `before`: the kernels' launches those
+    that grew, replays' booked launches included."""
+    now = counters()
+    return {k: _diff(now[k], before[k]) if k == "launches" else now[k] - before[k] for k in now}
+
+
 def book(launches: dict, times: int) -> None:
     """Add `times` x `launches` to nb_kernel.LAUNCHES: the launches of a
     conditional body that the device ran `times` times."""
@@ -267,35 +285,36 @@ class Region:
 
     def __init__(self, fn, device, name, warmup=None, books=True):
         global _capturing
-        before, seconds = _counts(), sharding.COLLECTIVES["seconds"]
-        captured = {}
-        t0 = time.perf_counter()
-        self._graph = Capture(device, name)
-        try:
-            self._graph.warmup(warmup or fn, WARMUP_RUNS)
-            warm = _counts()
-            with sharding.recording() as captured:
-                _capturing = self._graph
-                try:
-                    self.outputs = self._graph.capture(fn)
-                finally:
-                    _capturing = None
-            after = _counts()
-            self.launches = _diff(after[0], warm[0]) if books else {}
-            # an all-reduce that the capture holds is logged; one that ran
-            # (a test's stand-in for the capture runs fn) was counted
-            self.collectives = _merge(captured, _diff(after[1], warm[1])) if books else {}
-        finally:
-            now = _counts()
-            for built, new in ((STATS["build_launches"], _diff(now[0], before[0])),
-                               (STATS["build_collectives"],
-                                _merge(_diff(now[1], before[1]), captured))):
-                for k, v in new.items():
-                    built[k] = built.get(k, 0) + v
-            nb_kernel.LAUNCHES.update(before[0])
-            sharding.COLLECTIVES.update(before[1], seconds=seconds)
-        STATS["captures"] += 1
-        STATS["capture_s"] += time.perf_counter() - t0
+        with timed(f"capture {name}"):
+            before, seconds = _counts(), sharding.COLLECTIVES["seconds"]
+            captured = {}
+            t0 = time.perf_counter()
+            self._graph = Capture(device, name)
+            try:
+                self._graph.warmup(warmup or fn, WARMUP_RUNS)
+                warm = _counts()
+                with sharding.recording() as captured:
+                    _capturing = self._graph
+                    try:
+                        self.outputs = self._graph.capture(fn)
+                    finally:
+                        _capturing = None
+                after = _counts()
+                self.launches = _diff(after[0], warm[0]) if books else {}
+                # an all-reduce that the capture holds is logged; one that ran
+                # (a test's stand-in for the capture runs fn) was counted
+                self.collectives = _merge(captured, _diff(after[1], warm[1])) if books else {}
+            finally:
+                now = _counts()
+                for built, new in ((STATS["build_launches"], _diff(now[0], before[0])),
+                                   (STATS["build_collectives"],
+                                    _merge(_diff(now[1], before[1]), captured))):
+                    for k, v in new.items():
+                        built[k] = built.get(k, 0) + v
+                nb_kernel.LAUNCHES.update(before[0])
+                sharding.COLLECTIVES.update(before[1], seconds=seconds)
+            STATS["captures"] += 1
+            STATS["capture_s"] += time.perf_counter() - t0
 
     def replay(self, times: int = 1) -> None:
         for _ in range(times):

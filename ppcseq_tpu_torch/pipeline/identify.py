@@ -54,7 +54,7 @@ from ppcseq_tpu_torch.ppc.rng import approximated_ci, exact_ci
 from ppcseq_tpu_torch.utils import checkpoint as ckpt
 from ppcseq_tpu_torch.utils import constants as K
 from ppcseq_tpu_torch.utils.device import resolve_device
-from ppcseq_tpu_torch.utils.log import breadcrumb, timed
+from ppcseq_tpu_torch.utils.log import timed
 
 
 @dataclass
@@ -166,25 +166,28 @@ def do_inference(
             "(the trajectory-adaptive runner is flat-state only)")
     if cores is None:
         cores = os.cpu_count() or 1
-    breadcrumb("executing do_inference")
     with timed("model data"):
-        md = ingest.build_model_data(
-            my_df, sample, transcript, abundance, do_check,
-            X, sorted_sample_names, exposure_by_sample,
-            exclude=to_exclude,
-        )
+        with timed("build model data"):
+            md = ingest.build_model_data(
+                my_df, sample, transcript, abundance, do_check,
+                X, sorted_sample_names, exposure_by_sample,
+                exclude=to_exclude,
+            )
         # a gene-sharded fit pads G to a multiple of the axis and prepares
         # on the host: smart_init and the baseline need every gene, the card
         # only the rank's own
         pad_to = sharding.pad_genes(md.counts.shape[1], axes["genes"]) if mesh_genes else None
-        data, dims = nb_model.prepare_data(
-            md.counts, md.X, md.exposure_rate, md.n_check,
-            exclude_mask=md.exclude_mask, pad_genes_to=pad_to,
-            device="cpu" if mesh_genes else device, dtype=dtype,
-        )
+        with timed("prepare data"):
+            data, dims = nb_model.prepare_data(
+                md.counts, md.X, md.exposure_rate, md.n_check,
+                exclude_mask=md.exclude_mask, pad_genes_to=pad_to,
+                device="cpu" if mesh_genes else device, dtype=dtype,
+            )
         # delta-form likelihood baseline (float32-smooth evaluation)
-        data = nb_model.with_baseline(data, dims)
-        init = nb_model.smart_init(data, dims)
+        with timed("baseline"):
+            data = nb_model.with_baseline(data, dims)
+        with timed("smart init"):
+            init = nb_model.smart_init(data, dims)
 
     # If CI analysis is approximated, only ~1000 actual draws are needed
     # (reference R/utilities.R:1372)
@@ -205,7 +208,7 @@ def do_inference(
         data = sharding.shard_data(data, shard, device)
     logp = nb_model.flat_logp(dims)
     if approximate_posterior_inference:
-        with timed("variational fit"):
+        with timed("variational fit") as span:
             res = vb_iterative(
                 _density(logp, shard), dims.dim, g_fit,
                 data=data,
@@ -216,20 +219,26 @@ def do_inference(
                 device=device,
                 dtype=dtype,
             )
-        thetas = advi_sample(res, g_draws, draws_practical, layout=layout, dim=dims.dim)
+            span.set(attempts=res.attempts)
         fit_info = {"method": "advi", "elbo": res.elbo, "iterations": res.iterations}
         vb_iterations = res.iterations
     else:
-        with timed(f"{mcmc_sampler} fit"):
+        with timed(f"{mcmc_sampler} fit") as span:
             res, fit_info = _mcmc_fit(logp, data, dims, init, draws_practical, g_fit, device,
                                       dtype, mcmc_sampler, hmc_adapt_trajectory, cores, layout)
-        thetas = res.draws
+            if mcmc_sampler == "hmc":
+                span.set(rungs=fit_info["rungs"])
         vb_iterations = None
-    if layout is None or (approximate_posterior_inference and shard is None):
-        cols = None  # the whole vector is at hand
-    else:  # the draws' columns that the CIs read, from every rank
-        thetas = layout.gather(thetas, cols)
-    thetas = thetas.reshape(-1, thetas.shape[-1])
+    with timed("posterior draws"):
+        if approximate_posterior_inference:
+            thetas = advi_sample(res, g_draws, draws_practical, layout=layout, dim=dims.dim)
+        else:
+            thetas = res.draws
+        if layout is None or (approximate_posterior_inference and shard is None):
+            cols = None  # the whole vector is at hand
+        else:  # the draws' columns that the CIs read, from every rank
+            thetas = layout.gather(thetas, cols)
+        thetas = thetas.reshape(-1, thetas.shape[-1])
     if mesh is not None:
         fit_info["mesh"] = dict(axes)
 
@@ -325,36 +334,39 @@ def _mcmc_fit(logp, data, dims, init, draws_practical, generator, device, dtype,
     mesh = None if layout is None else layout.mesh
     shard = None if layout is None else layout.genes
     # a quick meanfield fit supplies the initial point and the diagonal mass
-    warm = fit_advi(
-        _density(logp, shard), dims.dim, generator, data=data,
-        init_mean=init, tol_rel_obj=0.01, learning_rate=0.3,
-        eval_every=50, grad_samples=4, layout=layout, device=device, dtype=dtype,
-    )
+    with timed("warm start"):
+        warm = fit_advi(
+            _density(logp, shard), dims.dim, generator, data=data,
+            init_mean=init, tol_rel_obj=0.01, learning_rate=0.3,
+            eval_every=50, grad_samples=4, layout=layout, device=device, dtype=dtype,
+        )
     inv_mass = torch.exp(2.0 * warm.log_sd)
     common = dict(data=data, dims=dims, mesh=mesh, init_theta=warm.mean, device=device,
                   dtype=dtype)
-    breadcrumb(f"executing {mcmc_sampler} fit")
     if mcmc_sampler == "hmc":
         chains = _chains_over(K.HMC_CHAINS, layout)
         per_chain = int(np.ceil(draws_practical / chains))
         # divergence-retry ladder (the MCMC analog of vb_iterative, reference
         # R/utilities.R:246-278): tighten target accept if more than 2% of
         # proposals diverge
-        for ta in (0.8, 0.95, 0.99):
-            res = run_hmc(
-                logp, dims.dim, generator,
-                num_chains=chains,
-                num_warmup=K.HMC_WARMUP,
-                num_draws=per_chain,
-                num_leapfrog=K.HMC_LEAPFROG,
-                target_accept=ta,
-                inv_mass=inv_mass,
-                adapt_trajectory=hmc_adapt_trajectory,
-                **common,
-            )
-            if res.divergences.sum() <= 0.02 * chains * per_chain:
+        for rungs, ta in enumerate((0.8, 0.95, 0.99), 1):
+            with timed("ladder rung", target_accept=ta) as rung:
+                res = run_hmc(
+                    logp, dims.dim, generator,
+                    num_chains=chains,
+                    num_warmup=K.HMC_WARMUP,
+                    num_draws=per_chain,
+                    num_leapfrog=K.HMC_LEAPFROG,
+                    target_accept=ta,
+                    inv_mass=inv_mass,
+                    adapt_trajectory=hmc_adapt_trajectory,
+                    **common,
+                )
+                divergences = int(res.divergences.sum())
+                rung.set(divergences=divergences)
+            if divergences <= 0.02 * chains * per_chain:
                 break
-            print(f"ppcseq says: {int(res.divergences.sum())} divergent "
+            print(f"ppcseq says: {divergences} divergent "
                   f"transitions at target_accept={ta}; retrying tighter")
         fit_info = {
             "method": "hmc",
@@ -362,6 +374,7 @@ def _mcmc_fit(logp, data, dims, init, draws_practical, generator, device, dtype,
             "divergences": res.divergences.tolist(),
             "step_size": res.step_size,
             "target_accept": ta,
+            "rungs": rungs,
         }
         if res.trajectory_length is not None:
             fit_info["trajectory_length"] = res.trajectory_length
@@ -490,21 +503,30 @@ def _finish_inference(
                            counts_rng=counts_rng, additional_parameters=additional)
 
 
-def _releasing_graphs(fn):
-    """fn, then the samplers' cached CUDA graphs dropped (infer/graphs.py),
-    so that their memory pools do not outlive the call."""
+def _root_span(fn):
+    """fn inside the root span `identify_outliers`, then the samplers'
+    cached CUDA graphs dropped (infer/graphs.py, span `release graphs`), so
+    that their memory pools do not outlive the call. While spans are
+    recorded (utils/log.py) the root carries the call's graph captures,
+    replays and likelihood kernel launches by kernel (graphs.counters_since:
+    replays' booked launches included)."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            graphs.release()
+        with timed("identify_outliers") as root:
+            before = graphs.counters() if root.recording else None
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with timed("release graphs"):
+                    graphs.release()
+                if before is not None:
+                    root.set(**graphs.counters_since(before))
 
     return wrapper
 
 
-@_releasing_graphs
+@_root_span
 def identify_outliers(
     data: pd.DataFrame,
     formula: str = "~ 1",
@@ -558,69 +580,70 @@ def identify_outliers(
     (parallel/multihost.py builds one), shards the fits (do_inference);
     every rank calls with the same arguments and returns the same table.
     """
-    if not approximate_posterior_inference:
-        _check_sampler(mcmc_sampler)
-    device = resolve_device(device)
-    _mesh_axes(mesh, device)
-    if cores is None:
-        cores = os.cpu_count() or 1
-    if tol_rel_obj != 0.01:
-        warnings.warn(
-            "ppcseq says: tol_rel_obj is accepted for API parity but ignored — "
-            f"the VB fit uses the reference's hard-coded {K.VB_TOL_REL_OBJ} "
-            "(reference R/utilities.R:1491-1493; see docs/PARITY.md)"
-        )
-    if do_check_only_on_detrimental is None:
-        do_check_only_on_detrimental = len(parse_formula(formula)) > 0
-    if seed is None:
-        seed = int(np.random.default_rng().integers(1, 1_000_000))
-
-    # ---- validation (R/methods.R:110-153) --------------------------------
-    ingest.check_columns_exist(data, [sample, transcript, abundance, significance])
-    ingest.check_if_any_na(data, [sample, transcript, abundance, significance] + parse_formula(formula))
-
-    if not data[do_check].astype(bool).any():
-        warnings.warn("ppcseq says: there are no transcripts with the .do_check category. Empty result returned.")
-        return pd.DataFrame(
-            {transcript: [], "sample_wise_data": [], "ppc_samples_failed": [],
-             "tot_deleterious_outliers": []}
-        )
-
-    if approximate_posterior_inference and save_generated_quantities:
-        raise ValueError(
-            "Variational Bayes does not support saving generated quantities, use sampling"
-        )
-    if not (0 <= percent_false_positive_genes <= 100) or np.isnan(percent_false_positive_genes):
-        raise ValueError("percent_false_positive_genes must be between 0 and 100")
-    if data[transcript].isna().any():
-        raise ValueError("There are NAs in the .transcript. Please filter those records")
-    ingest.check_integer_counts(data, abundance)
-
-    # ---- thresholds and draw counts (R/methods.R:155-167) ----------------
-    n_samples = data[sample].nunique()
-    if adj_prob_theshold_2 is None:
-        adj_prob_theshold_2 = (
-            percent_false_positive_genes / 100 / n_samples
-            * (2 if do_check_only_on_detrimental else 1)
-        )
-    adj_prob_theshold_1 = max(0.05, adj_prob_theshold_2 * 2)
-    how_many_posterior_draws_1 = max(draws_after_tail / adj_prob_theshold_1, 1000)
-    how_many_posterior_draws_2 = max(draws_after_tail / adj_prob_theshold_2, 1000)
-
-    # auto-switch to approximated CI analysis (R/methods.R:169-195)
-    if approximate_posterior_analysis is None:
-        approximate_posterior_analysis = how_many_posterior_draws_2 > K.APPROX_ANALYSIS_DRAW_THRESHOLD
-    if not approximate_posterior_analysis:
-        intercept_b, slope_b = (
-            K.MEM_REGRESSION_MCMC if not approximate_posterior_inference else K.MEM_REGRESSION_VB
-        )
-        required = intercept_b + how_many_posterior_draws_2 * slope_b
-        if required > _available_memory_bytes():
+    with timed("argument checks"):
+        if not approximate_posterior_inference:
+            _check_sampler(mcmc_sampler)
+        device = resolve_device(device)
+        _mesh_axes(mesh, device)
+        if cores is None:
+            cores = os.cpu_count() or 1
+        if tol_rel_obj != 0.01:
             warnings.warn(
-                "Not enough memory to analyse the posterior with full MCMC draws; "
-                "approximate_posterior_analysis set to True"
+                "ppcseq says: tol_rel_obj is accepted for API parity but ignored — "
+                f"the VB fit uses the reference's hard-coded {K.VB_TOL_REL_OBJ} "
+                "(reference R/utilities.R:1491-1493; see docs/PARITY.md)"
             )
-            approximate_posterior_analysis = True
+        if do_check_only_on_detrimental is None:
+            do_check_only_on_detrimental = len(parse_formula(formula)) > 0
+        if seed is None:
+            seed = int(np.random.default_rng().integers(1, 1_000_000))
+
+        # ---- validation (R/methods.R:110-153) --------------------------------
+        ingest.check_columns_exist(data, [sample, transcript, abundance, significance])
+        ingest.check_if_any_na(data, [sample, transcript, abundance, significance] + parse_formula(formula))
+
+        if not data[do_check].astype(bool).any():
+            warnings.warn("ppcseq says: there are no transcripts with the .do_check category. Empty result returned.")
+            return pd.DataFrame(
+                {transcript: [], "sample_wise_data": [], "ppc_samples_failed": [],
+                 "tot_deleterious_outliers": []}
+            )
+
+        if approximate_posterior_inference and save_generated_quantities:
+            raise ValueError(
+                "Variational Bayes does not support saving generated quantities, use sampling"
+            )
+        if not (0 <= percent_false_positive_genes <= 100) or np.isnan(percent_false_positive_genes):
+            raise ValueError("percent_false_positive_genes must be between 0 and 100")
+        if data[transcript].isna().any():
+            raise ValueError("There are NAs in the .transcript. Please filter those records")
+        ingest.check_integer_counts(data, abundance)
+
+        # ---- thresholds and draw counts (R/methods.R:155-167) ----------------
+        n_samples = data[sample].nunique()
+        if adj_prob_theshold_2 is None:
+            adj_prob_theshold_2 = (
+                percent_false_positive_genes / 100 / n_samples
+                * (2 if do_check_only_on_detrimental else 1)
+            )
+        adj_prob_theshold_1 = max(0.05, adj_prob_theshold_2 * 2)
+        how_many_posterior_draws_1 = max(draws_after_tail / adj_prob_theshold_1, 1000)
+        how_many_posterior_draws_2 = max(draws_after_tail / adj_prob_theshold_2, 1000)
+
+        # auto-switch to approximated CI analysis (R/methods.R:169-195)
+        if approximate_posterior_analysis is None:
+            approximate_posterior_analysis = how_many_posterior_draws_2 > K.APPROX_ANALYSIS_DRAW_THRESHOLD
+        if not approximate_posterior_analysis:
+            intercept_b, slope_b = (
+                K.MEM_REGRESSION_MCMC if not approximate_posterior_inference else K.MEM_REGRESSION_VB
+            )
+            required = intercept_b + how_many_posterior_draws_2 * slope_b
+            if required > _available_memory_bytes():
+                warnings.warn(
+                    "Not enough memory to analyse the posterior with full MCMC draws; "
+                    "approximate_posterior_analysis set to True"
+                )
+                approximate_posterior_analysis = True
 
     # ---- data prep (R/methods.R:198-238) ---------------------------------
     with timed("format input"):
@@ -630,19 +653,21 @@ def identify_outliers(
             significance, how_many_negative_controls,
         )
     with timed("design matrix and scaling"):
-        X, _x_names, x_rows = create_design_matrix(my_df, formula, sample)
-        sorted_sample_names = list(x_rows[sample])
+        with timed("design matrix"):
+            X, _x_names, x_rows = create_design_matrix(my_df, formula, sample)
+            sorted_sample_names = list(x_rows[sample])
 
-        if scaling_factor is not None:
-            scal = (
-                data[[sample, scaling_factor]]
-                .drop_duplicates()
-                .rename(columns={scaling_factor: "multiplier"})
-            )
-            scal["exposure_rate"] = -np.log(scal["multiplier"])
-            scal["exposure_multiplier"] = np.exp(scal["exposure_rate"])
-        else:
-            scal = sample_scaling(my_df, sample, transcript, abundance)
+        with timed("sample scaling"):
+            if scaling_factor is not None:
+                scal = (
+                    data[[sample, scaling_factor]]
+                    .drop_duplicates()
+                    .rename(columns={scaling_factor: "multiplier"})
+                )
+                scal["exposure_rate"] = -np.log(scal["multiplier"])
+                scal["exposure_multiplier"] = np.exp(scal["exposure_rate"])
+            else:
+                scal = sample_scaling(my_df, sample, transcript, abundance)
     exposure_by_sample = dict(zip(scal[sample], scal["exposure_rate"]))
 
     common = dict(
@@ -727,30 +752,31 @@ def identify_outliers(
             _save(checkpoint_dir, "pass2", res_test, fp2, mesh)
 
     # ---- merge (reference merge_results, R/utilities.R:539-608) ----------
-    result = merge_results(
-        res_discovery.table, res_test.table, formula,
-        transcript, abundance, sample,
-        do_check_only_on_detrimental, scal.rename(columns={sample: "__sample__"}),
-        sample_colname=sample,
-    )
-    result.attrs["total_draws"] = res_test.total_draws
-    # provenance: which (sample, gene) cells pass 1 excluded from pass 2
-    excl = to_exclude.merge(
-        res_discovery.table[["S", "G", transcript, sample]].drop_duplicates(),
-        on=["S", "G"], how="left",
-    )
-    result.attrs["pass1_excluded"] = excl.reset_index(drop=True)
-    result.attrs["transcript_column"] = transcript
-    result.attrs["abundance_column"] = abundance
-    result.attrs["sample_column"] = sample
-    result.attrs["formula"] = formula
-    if approximate_posterior_inference:
-        result.attrs["vb_iterations"] = (res_discovery.vb_iterations, res_test.vb_iterations)
-    if res_test.additional_parameters:
-        result.attrs["additional_parameters"] = res_test.additional_parameters
-    if pass_fit:
-        result.attrs["fit 1"] = res_discovery.fit
-        result.attrs["fit 2"] = res_test.fit
+    with timed("merge"):
+        result = merge_results(
+            res_discovery.table, res_test.table, formula,
+            transcript, abundance, sample,
+            do_check_only_on_detrimental, scal.rename(columns={sample: "__sample__"}),
+            sample_colname=sample,
+        )
+        result.attrs["total_draws"] = res_test.total_draws
+        # provenance: which (sample, gene) cells pass 1 excluded from pass 2
+        excl = to_exclude.merge(
+            res_discovery.table[["S", "G", transcript, sample]].drop_duplicates(),
+            on=["S", "G"], how="left",
+        )
+        result.attrs["pass1_excluded"] = excl.reset_index(drop=True)
+        result.attrs["transcript_column"] = transcript
+        result.attrs["abundance_column"] = abundance
+        result.attrs["sample_column"] = sample
+        result.attrs["formula"] = formula
+        if approximate_posterior_inference:
+            result.attrs["vb_iterations"] = (res_discovery.vb_iterations, res_test.vb_iterations)
+        if res_test.additional_parameters:
+            result.attrs["additional_parameters"] = res_test.additional_parameters
+        if pass_fit:
+            result.attrs["fit 1"] = res_discovery.fit
+            result.attrs["fit 2"] = res_test.fit
     return result
 
 

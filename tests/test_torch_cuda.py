@@ -1127,3 +1127,48 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly():
                  device=dev)
     assert len(calls) == graphs.WARMUP_RUNS + 1 and "advi" not in graphs._CACHE
     assert float(torch.ones(4, device=dev).sum()) == 4.0
+
+
+@pytest.mark.parametrize("approx", [True, False], ids=["vb", "hmc"])
+def test_the_root_span_counts_what_the_call_ran(approx, monkeypatch):
+    """identify_outliers on the reference's 3-gene case with its spans
+    recorded (utils/log.py): the root span's captures are the Regions the
+    call built, its launches the growth of nb_kernel.LAUNCHES by kernel
+    (replays' booked launches included), and on the HMC branch these
+    exceed the calls the returned fits account for, by the ADVI warm
+    starts' launches at least."""
+    _needs_card()
+    from ppcseq_tpu_torch import identify_outliers, load_counts
+    from ppcseq_tpu_torch.utils import log
+
+    built = []
+
+    class Region(graphs.Region):
+        def __init__(self, fn, device, name, *args, **kwargs):
+            built.append(name)
+            super().__init__(fn, device, name, *args, **kwargs)
+
+    monkeypatch.setattr(graphs, "Region", Region)
+    table = load_counts()
+    three = table.assign(is_significant=table.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
+    before = dict(nb_kernel.LAUNCHES)
+    log.clear_spans()
+    log.set_verbose(True)
+    try:
+        res = identify_outliers(three, formula="~ Label", sample="sample", transcript="symbol",
+                                abundance="value", significance="PValue",
+                                do_check="is_significant", percent_false_positive_genes=1,
+                                how_many_negative_controls=50, seed=42, pass_fit=True,
+                                approximate_posterior_inference=approx, device="cuda")
+    finally:
+        log.set_verbose(False)
+    torch.cuda.synchronize()
+    root = log.spans()[-1]
+    log.clear_spans()
+    grown = {k: v - before[k] for k, v in nb_kernel.LAUNCHES.items() if v != before[k]}
+    assert root.name == "identify_outliers" and root.attrs["captures"] == len(built) > 0
+    assert root.attrs["launches"] == grown and sum(grown.values()) > 0
+    if not approx:
+        fits = [res.attrs[f"fit {p}"] for p in (1, 2)]
+        accounted = sum(f.num_leapfrog // f.draws.shape[0] + 1 for f in fits)
+        assert sum(grown.values()) > accounted
