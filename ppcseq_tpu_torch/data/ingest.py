@@ -88,7 +88,7 @@ def select_to_check_and_house_keeping(
     ascending significance (stable), taking the last N (least significant);
     control rows are the non-check rows of those transcripts.
     """
-    check_mask, control_mask = _selection_masks(
+    check_mask, control_mask, _, _ = _selection_masks(
         df, do_check, significance, transcript, how_many_negative_controls
     )
     return pd.concat(
@@ -98,26 +98,51 @@ def select_to_check_and_house_keeping(
 
 def _selection_masks(df, do_check, significance, transcript,
                      how_many_negative_controls):
-    """Boolean row masks (check rows, control rows) for the gene selection.
+    """Boolean row masks (check rows, control rows) for the gene selection,
+    with the rows' transcript codes (first-appearance order) and their count.
 
-    numpy formulation of "stable-sort by significance, distinct transcripts,
-    take the last N": each transcript's rank is the position of its first
-    row in the significance-sorted order (ties keep original row order,
-    exactly like the stable sort + distinct it replaces — the pandas
-    version cost ~7 s on a 5M-row cohort).
+    "Stable-sort the rows by significance, distinct transcripts, take the
+    last N" as a reduction over transcripts. A transcript's first row in the
+    stable ascending order is the first of its rows holding its smallest
+    value, NaN last as the sort puts it: a transcript ranks by its smallest
+    non-NaN value, and one whose rows are all NaN after every other. So
+    ordering the transcripts by (that value, that row) orders them by their
+    first row in the sorted order, ties keeping the original row order, and
+    only the transcripts' keys are sorted, never the rows (the row sort and
+    a second over its codes cost ~1.4 s on a 5M-row cohort). An all-NaN
+    transcript holds no row (`at` stays past the end), so the stable
+    lexsort keeps those in code order, which is first-appearance order.
     """
-    codes, _ = pd.factorize(df[transcript])
-    order = np.argsort(df[significance].to_numpy(), kind="stable")
-    _, first_pos = np.unique(codes[order], return_index=True)  # per code
-    n_codes = len(first_pos)
+    codes, uniq = pd.factorize(df[transcript], use_na_sentinel=False)
+    n_codes = len(uniq)
+    sig = df[significance].to_numpy()
+    first = np.full(n_codes, len(codes))
+    np.minimum.at(first, codes, np.arange(len(codes)))
+    lowest = sig[first]  # each transcript's smallest value, NaN where all its rows are NaN
+    np.fmin.at(lowest, codes, sig)
+    holds = np.flatnonzero(sig == lowest[codes])
+    at = np.full(n_codes, len(codes))  # the first row holding it
+    np.minimum.at(at, codes[holds], holds)
     n_tail = min(how_many_negative_controls, n_codes)
-    tail_codes = np.argsort(first_pos, kind="stable")[n_codes - n_tail:]
+    tail_codes = np.lexsort((at, lowest))[n_codes - n_tail:]
     is_tail = np.zeros(n_codes, dtype=bool)
     is_tail[tail_codes] = True
 
     check_mask = df[do_check].astype(bool).to_numpy()
     control_mask = ~check_mask & is_tail[codes]
-    return check_mask, control_mask
+    return check_mask, control_mask, codes, n_codes
+
+
+def _first_appearance(codes: np.ndarray, n_codes: int) -> tuple[np.ndarray, int]:
+    """`codes` (in [0, n_codes)) relabelled 0, 1, ... in order of first
+    appearance, and the number of labels: a scatter-min of positions and a
+    sort of the codes present, where np.unique would sort every row."""
+    first = np.full(n_codes, len(codes))
+    np.minimum.at(first, codes, np.arange(len(codes)))
+    present = np.flatnonzero(first < len(codes))
+    label = np.zeros(n_codes, dtype=np.int64)
+    label[present[np.argsort(first[present])]] = np.arange(len(present))
+    return label[codes], len(present)
 
 
 def format_input(
@@ -129,15 +154,18 @@ def format_input(
     do_check: str,
     significance: str,
     how_many_negative_controls: int = 500,
+    span=None,
 ) -> pd.DataFrame:
     """Subset to check+control genes and assign G (transcript) / S (sample) indices.
 
     G and S are 0-based here (the reference's Stan indices are 1-based;
     everything downstream in this package is 0-based). Check genes come first
-    in G order, exactly as in reference R/utilities.R:924-959.
+    in G order, exactly as in reference R/utilities.R:924-959. `span`, a
+    `utils.log.timed` span, gets the counts `rows` (input rows), `kept` (rows
+    returned) and `ranked` (transcript keys the selection sorted).
     """
     covariates = parse_formula(formula)
-    check_mask, control_mask = _selection_masks(
+    check_mask, control_mask, codes, n_codes = _selection_masks(
         df, do_check, significance, transcript, how_many_negative_controls
     )
     keep_cols = [transcript, sample, abundance] + covariates + [do_check]
@@ -149,13 +177,13 @@ def format_input(
     # de-duplicate by (transcript, sample) first occurrence: for rectangular
     # inputs one row exists per pair, so this equals the reference's
     # distinct() across the kept columns (R/utilities.R:940) while running
-    # at C speed instead of hashing object columns. factorize codes double
-    # as the G/S indices: first-appearance order, check genes first —
-    # exactly the reference's scheme.
-    codes_t, uniq_t = pd.factorize(sub[transcript])
+    # at C speed instead of hashing object columns. First-appearance labels
+    # double as the G/S indices, check genes first — exactly the reference's
+    # scheme; G relabels the selection's transcript codes.
+    codes_t, n_t = _first_appearance(codes[idx], n_codes)
     codes_s, uniq_s = pd.factorize(sub[sample])
-    if len(sub) != len(uniq_t) * len(uniq_s):  # full rectangle => no dups
-        pair = codes_t.astype(np.int64) * len(uniq_s) + codes_s
+    if len(sub) != n_t * len(uniq_s):  # full rectangle => no dups
+        pair = codes_t * len(uniq_s) + codes_s
         _, first_idx = np.unique(pair, return_index=True)
         if len(first_idx) != len(sub):
             first_idx.sort()  # keep original row order of the kept rows
@@ -163,8 +191,10 @@ def format_input(
             codes_t = codes_t[first_idx]
             codes_s = codes_s[first_idx]
     sub = sub.reset_index(drop=True)
+    if span is not None:
+        span.set(rows=len(df), kept=len(sub), ranked=n_codes)
 
-    return sub.assign(G=codes_t.astype(np.int64), S=codes_s.astype(np.int64))
+    return sub.assign(G=codes_t, S=codes_s.astype(np.int64))
 
 
 def _pivot_numpy(s_idx, g_idx, values, S: int, G: int) -> np.ndarray:

@@ -646,11 +646,11 @@ def identify_outliers(
                 approximate_posterior_analysis = True
 
     # ---- data prep (R/methods.R:198-238) ---------------------------------
-    with timed("format input"):
+    with timed("format input") as span:
         work = data.assign(do_check___=data[do_check].astype(bool))
         my_df = ingest.format_input(
             work, formula, sample, transcript, abundance, "do_check___",
-            significance, how_many_negative_controls,
+            significance, how_many_negative_controls, span=span,
         )
     with timed("design matrix and scaling"):
         with timed("design matrix"):

@@ -214,6 +214,18 @@ def test_one_call_is_one_tree(traced):
     assert children["design matrix"] == children["sample scaling"] == "design matrix and scaling"
 
 
+def test_format_input_counts_rows_and_ranks_transcripts(traced):
+    """The `format input` span carries the input's rows, the rows kept (3
+    checked and 20 control transcripts in every one of the 21 samples) and
+    the keys the selection sorted: one per transcript, never one per row."""
+    counts = load_counts()
+    for spans in traced.calls:
+        (span,) = [s for s in spans if s.name == "format input"]
+        assert span.attrs == {"rows": len(counts), "kept": 23 * 21,
+                              "ranked": counts.symbol.nunique()}
+        assert span.attrs["ranked"] < span.attrs["rows"]
+
+
 def test_spans_add_no_profiler_range_and_one_offset_maps_them(traced):
     """No event of the profiler's trace bears a span's name (a range would
     also sit on the device's timeline under a CUDA profiler). Mapped onto
